@@ -1,13 +1,15 @@
-"""lz4tpu — a TPU-native LZ4 codec framework.
+"""lz4tpu — an LZ4 codec framework with a GPU decode path.
 
 A from-scratch rebuild of the capabilities of the reference Ada library
 ``m7a/bo-lz4-ada`` (streaming LZ4 frame/legacy/skippable/raw-block
-decompression with xxhash32 verification), re-designed TPU-first:
+decompression with xxhash32 verification), re-designed around a
+data-parallel device pipeline:
 
 - host layer: frame parsing, streaming FSM, native (C++) token scan /
   ring decode / hash-chain encoder (``lz4tpu.native``, ``lz4tpu.stream``)
-- device layer: batched, byte-parallel block decode and xxhash32 as
-  JAX/XLA + Pallas kernels over HBM byte buffers (``lz4tpu.device``)
+- device layer: batched, byte-parallel block decode as XLA programs and
+  xxhash32 as a Pallas-Triton kernel over device-resident byte buffers
+  (``lz4tpu.device``), on an NVIDIA GPU
 - scale-out: data-parallel decode over a ``jax.sharding.Mesh`` with
   ordered gather (``lz4tpu.dist``)
 - plus a capability the reference lacks: an LZ4 encoder.

@@ -1,8 +1,8 @@
 """High-level one-shot API: decompress / compress whole buffers.
 
-``decompress`` routes through the host streaming engine by default and
-through the batched TPU device pipeline when requested (or when
-``backend="auto"`` finds a TPU and enough data to be worth shipping).
+``decompress`` routes through the host engine, or through the batched
+device pipeline when requested (or when ``backend="auto"`` finds a GPU
+and enough data to be worth shipping).
 
 The compressed *writer* (``compress``) produces standard LZ4 frames that
 the reference CLI decodes bit-exactly; the match finder is the native
@@ -218,31 +218,31 @@ def _decompress_host_streaming(arr, reservation: Reservation) -> bytes:
     return bytes(out)
 
 
-def decompress(data, reservation: Reservation = FOR_ALL, backend: str = "auto") -> bytes:
+def decompress(data, reservation: Reservation = FOR_ALL,
+               backend: str = "auto", stats=None) -> bytes:
     """Decode a whole buffer.
 
-    backend: "host" (native/C++ streaming engine), "device" (batched
-    TPU pipeline), or "auto" (device when a non-CPU JAX backend is
-    present and the input is large enough to amortize dispatch).
+    backend: "host" (native/C++ engine), "device" (batched device
+    pipeline), or "auto" (the device on a GPU for inputs of at least
+    64 KiB, where shipping the work pays for its dispatch; the host
+    otherwise).  ``stats`` (a ``pipeline.DecodeStats``) counts the
+    bytes each engine decoded, the host's under ``"host"``.
     """
-    if backend == "host":
-        return decompress_host(data, reservation)
+    if backend == "auto":
+        from .device import platform
+
+        backend = ("device" if platform() == "gpu" and len(data) >= 1 << 16
+                   else "host")
     if backend == "device":
         from .pipeline import decompress_device
 
-        return decompress_device(data, reservation)
-    # auto
-    try:
-        import jax
-
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    if platform != "cpu" and len(data) >= 1 << 16:
-        from .pipeline import decompress_device
-
-        return decompress_device(data, reservation)
-    return decompress_host(data, reservation)
+        return decompress_device(data, reservation, stats)
+    if backend != "host":
+        raise ValueError(f"unknown backend {backend!r}")
+    out = decompress_host(data, reservation)
+    if stats is not None:
+        stats.note_engine("host", 0, len(out))
+    return out
 
 
 def _frame_descriptor(
@@ -340,7 +340,7 @@ def compress(
         chunk = data[pos:pos + block_max]
         hist = b"" if block_independence else data[max(0, pos - 65536):pos]
         if backend == "device":
-            # TPU match finding (sorted grams), host emission — see
+            # device match finding (sorted grams), host emission — see
             # lz4tpu/device/encode.py
             comp = compress_block_device(chunk, hist=hist)
         elif backend == "device-emit":

@@ -1,38 +1,37 @@
-"""Byte-parallel LZ4 decode on the device.
+"""Byte-parallel LZ4 decode on the device: the dense-chain engine.
 
 This replaces the reference's sequential pointer-chasing hot loop
-(reference: lib/lz4ada.adb:716-904) with a data-parallel formulation
-that fits the TPU's vector units:
+(reference: lib/lz4ada.adb:716-904) with a data-parallel formulation of
+gathers and scatters, which the GPU runs natively:
 
-1. **Sequence table** (host pass 1, native token scan): each block's
-   token stream becomes per-sequence records (literal length/source,
-   match offset); output offsets follow from a prefix sum.
+1. **Sequence table** (host, native token scan): each block's token
+   stream becomes per-sequence records (literal length/source, match
+   length/offset) with output offsets.
 2. **Ownership map**: each output byte finds its sequence with a
-   scatter + running-max — O(n) vector work.
+   scatter-max + running max — O(n) vector work.
 3. **Source resolution**: each output byte's provenance is either a
    literal byte in the compressed input, or ``out[i - offset]``.
    Self-overlapping matches are collapsed with a modulo (generalizing
    the reference's doubling replay, lz4ada.adb:893-903) so every match
-   byte points strictly before its own match start. Remaining chains
-   are resolved by pointer doubling — ``src = src[src]`` — log2(depth)
-   gathers instead of a sequential walk.
+   byte points strictly before its own match start.  Remaining chains
+   are resolved by pointer doubling — ``src = src[src]``.
 4. **Byte gather**: one final gather pulls every output byte from the
    compressed input's literal regions.
 
 Encoding convention: values < 0 are resolved literal pointers
 (``-(comp_index) - 1``); values >= 0 are unresolved output positions.
 
-Performance note (re-measured on TPU v5e, round 2): XLA per-element
-gathers cost ~13 ns/element here, so a full resolve of t1111k is
-~270 ms (0.004 GB/s) — this engine is the CORRECTNESS fallback, three
-orders of magnitude behind the routing kernels (device/fused.py,
-device/mxu2.py), never the fast path.  The doubling step is statically
-unrolled (``UNROLL_ITERS`` covers chain depths to 2**UNROLL_ITERS) and
-returns an ``unresolved`` flag; the pipeline re-invokes for deeper
-chains, so convergence is checked, not assumed.
+Round bound: a match byte points strictly before its sequence's match
+start, so every hop lands in an earlier sequence *of the same chain*
+(chains never point into each other).  A provenance chain is therefore
+at most S_max hops deep, S_max being the sequence count of the largest
+chain, and ``ceil(log2(S_max)) + 1`` doubling rounds resolve every byte
+— no convergence flag is needed.
 
-All shapes are static (bucketed by the pipeline); one XLA computation
-per bucket size.
+Many chains resolve in ONE launch: the caller lays them out back to
+back in one output space (``resolve``'s ``cols``).  Shapes are static
+and bucketed to powers of two by the caller, so compiled programs are
+reused across requests.
 """
 
 from __future__ import annotations
@@ -43,114 +42,69 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-UNROLL_ITERS = 16
+# rows of the packed sequence-table operand of ``resolve``
+COLS = ("out_start", "lit_len", "lit_src", "match_off", "match_len")
+# padding value of each row: a padded sequence produces no byte
+COL_PAD = {"lit_len": 0, "lit_src": 0, "match_off": 1, "match_len": 0}
 
 
-def _double(src: jax.Array, n_out: int) -> jax.Array:
-    hop = jnp.take(src, jnp.clip(src, 0, n_out - 1))
-    return jnp.where(src >= 0, hop, src)
+def doubling_rounds(max_chain_seqs: int) -> int:
+    """Pointer-doubling rounds that resolve every chain of at most
+    ``max_chain_seqs`` sequences: ceil(log2(S)) + 1."""
+    return (max(1, max_chain_seqs) - 1).bit_length() + 1
 
 
-@functools.partial(jax.jit, static_argnames=("n_out", "iters"))
-def build_sources(
-    out_start: jax.Array,     # int32 [S] global output offset per sequence
-    lit_len: jax.Array,       # int32 [S]
-    lit_src: jax.Array,       # int32 [S] global input offset of the literals
-    match_off: jax.Array,     # int32 [S] back-reference distance (>=1; pad=1)
-    produces: jax.Array,      # bool  [S] sequence emits at least one byte
-    n_real: jax.Array,        # int32 [] actual output size (<= n_out)
-    n_out: int,
-    iters: int = UNROLL_ITERS,
-) -> tuple[jax.Array, jax.Array]:
-    """Initial per-byte source map + doubling; returns (src, unresolved)."""
-    s_ids = jnp.arange(out_start.shape[0], dtype=jnp.int32)
-    pos = jnp.arange(n_out, dtype=jnp.int32)
-
-    # Ownership: seq_id[i] = index of the sequence producing byte i.
-    claims = jnp.zeros((n_out,), dtype=jnp.int32)
-    claims = claims.at[jnp.where(produces, out_start, n_out)].max(
-        s_ids, mode="drop"
-    )
-    seq_id = jax.lax.cummax(claims)
-
+def initial_sources(pos, seq_id, out_start, lit_len, lit_src, match_off):
+    """Per-byte provenance before doubling: a literal pointer, or the
+    output position the byte copies (strictly before its match start).
+    ``seq_id`` is the owning sequence of each position in ``pos``."""
     os_ = jnp.take(out_start, seq_id)
     ll = jnp.take(lit_len, seq_id)
     ls = jnp.take(lit_src, seq_id)
     mo = jnp.take(match_off, seq_id)
-
     local = pos - os_
     mstart = os_ + ll
     lit_ptr = -(ls + local) - 1
     match_ptr = mstart - mo + jax.lax.rem(pos - mstart, mo)
-    src = jnp.where(local < ll, lit_ptr, match_ptr)
-    # Padded tail resolves immediately (points at comp[0], sliced away).
+    return jnp.where(local < ll, lit_ptr, match_ptr)
+
+
+@functools.partial(jax.jit, static_argnames=("n_out", "rounds"))
+def resolve(comp, cols, n_real, *, n_out: int, rounds: int):
+    """Decode a packed sequence table to bytes.
+
+    comp:   uint8 [C] compressed input (any padding)
+    cols:   int32 [5, S] rows ``COLS``; out_start in output coordinates
+            (padded sequences: out_start = n_out, see ``COL_PAD``)
+    n_real: int32 [] real output size (<= n_out); the padded tail
+            gathers comp[0] and is sliced away by the caller
+    Returns uint8 [n_out].
+    """
+    out_start, lit_len, lit_src, match_off, match_len = (
+        cols[i] for i in range(len(COLS)))
+    produces = (lit_len + match_len) > 0
+    s_ids = jnp.arange(out_start.shape[0], dtype=jnp.int32)
+    pos = jnp.arange(n_out, dtype=jnp.int32)
+
+    # Ownership: seq_id[i] = index of the sequence producing byte i.
+    claims = jnp.zeros((n_out,), jnp.int32).at[
+        jnp.where(produces, out_start, n_out)].max(s_ids, mode="drop")
+    seq_id = jax.lax.cummax(claims)
+
+    src = initial_sources(pos, seq_id, out_start, lit_len, lit_src,
+                          match_off)
     src = jnp.where(pos < n_real, src, -1)
 
-    for _ in range(iters):
-        src = _double(src, n_out)
-    return src, jnp.any(src >= 0)
+    def double(_, s):
+        hop = jnp.take(s, jnp.clip(s, 0, n_out - 1))
+        return jnp.where(s >= 0, hop, s)
 
-
-@functools.partial(jax.jit, static_argnames=("n_out",))
-def continue_doubling(src: jax.Array, n_out: int) -> tuple[jax.Array, jax.Array]:
-    """Extra doubling rounds for chains deeper than 2**UNROLL_ITERS."""
-    for _ in range(UNROLL_ITERS):
-        src = _double(src, n_out)
-    return src, jnp.any(src >= 0)
-
-
-@jax.jit
-def gather_bytes(comp: jax.Array, src: jax.Array) -> jax.Array:
-    """Final byte gather: literal pointers -> decoded bytes."""
+    src = jax.lax.fori_loop(0, rounds, double, src)
     return jnp.take(comp, jnp.clip(-src - 1, 0, comp.shape[0] - 1))
 
 
-def doubling_iters(n_seqs: int) -> int:
-    """Doubling rounds: chain depth is bounded by the sequence count
-    (every hop lands in a strictly earlier sequence), so
-    ceil(log2(S)) + 1 rounds always suffice; capped at UNROLL_ITERS
-    (gathers are the dominant cost — do not run 16 rounds when 3
-    resolve everything)."""
-    iters = 1
-    while (1 << iters) < max(2, n_seqs) and iters < UNROLL_ITERS:
-        iters += 1
-    return min(UNROLL_ITERS, iters + 1)
-
-
-def resolve_sources(
-    comp: jax.Array,
-    out_start: jax.Array,
-    lit_len: jax.Array,
-    lit_src: jax.Array,
-    match_off: jax.Array,
-    produces: jax.Array,
-    n_real: int,
-    n_out: int,
-    n_seqs: int | None = None,
-) -> np.ndarray:
-    """Full device decode; returns decoded bytes as numpy uint8[n_out].
-
-    Output bytes and the convergence flag come back in one host fetch,
-    so the (rare) continue-doubling path costs an extra round trip but
-    the common path costs none beyond the output transfer itself.
-    """
-    if n_seqs is None:
-        n_seqs = out_start.shape[0]
-    src, unresolved = build_sources(
-        out_start, lit_len, lit_src, match_off, produces,
-        jnp.int32(n_real), n_out, iters=doubling_iters(n_seqs),
-    )
-    out = gather_bytes(comp, src)
-    out_np, flag = jax.device_get((out, unresolved))
-    while bool(flag):
-        src, unresolved = continue_doubling(src, n_out)
-        out = gather_bytes(comp, src)
-        out_np, flag = jax.device_get((out, unresolved))
-    return out_np
-
-
 def bucket(n: int, minimum: int = 1024) -> int:
-    """Round up to the next power of two (bounds jit cache size)."""
+    """Round up to the next power of two (bounds the jit cache)."""
     b = minimum
     while b < n:
         b <<= 1

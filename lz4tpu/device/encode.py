@@ -3,7 +3,7 @@
 The reference has no encoder (decompression only, README.md:20); the
 rebuild's host encoder uses a classic hash-chain / optimal parse in
 C++ (native/lz4core.cpp).  This module moves the *search* — the
-dominant cost of LZ4 encoding — onto the TPU, where the idiomatic
+dominant cost of LZ4 encoding — onto the device, where the idiomatic
 formulation is sorting, not hashing:
 
 1. grams: g(p) = the 4 bytes at p as one int32 word (vector ops).
@@ -16,9 +16,7 @@ formulation is sorting, not hashing:
 4. a second sort by position restores output order (all depths carried
    through one sort).
 
-Two 1M-element sorts cost ~2.5 ms on v5e (measured), so candidate
-generation runs at ~0.4 GB/s/chip and scales across chips per block;
-deeper chains add only rolls/compares, not sorts.  The byte-granular
+Deeper chains add only rolls/compares, not sorts.  The byte-granular
 emission (verify, extend, token stream) stays on the host in C++
 (native lz4tpu_compress_block_cands), trying the K candidates per
 position and keeping the longest — O(n*K) with a small constant, no
@@ -27,19 +25,14 @@ searching.
 Works on any JAX backend (pure XLA: no Pallas required), so CPU CI
 exercises the same code path.
 
-Measured split (t300k.bin, TPU v5e + 1-core host, 2026-08-17):
-device sorted-gram candidate generation 126 MB/s of payload
-(slope-timed device compute); host token emission from those
-candidates 18 MB/s/core; host full greedy (find + emit) 14 MB/s/core.
 Emission stays host-side deliberately: token boundaries depend on the
 emitted lengths AND the greedy/lazy choices feed back into later
-match selection, so unlike decode there is no pack-time resolution
-that makes the byte stream data-independent — a device emitter would
-need a data-dependent-output-position kernel (future work).  The
-sharded encoder therefore parallelizes emission per BLOCK across host
-cores/hosts while the candidate pass batches on the mesh; its device
-fraction is small by construction, which is why encode throughput is
-reported per host core in BENCHMARKS.md rather than per chip.
+match selection, so unlike decode there is no resolution that makes
+the byte stream data-independent — a device emitter would need a
+data-dependent-output-position kernel (future work).  The sharded
+encoder therefore parallelizes emission per BLOCK across host cores
+while the candidate pass batches on the mesh.  Encode speed on the GPU
+is not measured yet.
 """
 
 from __future__ import annotations

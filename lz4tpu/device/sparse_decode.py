@@ -1,10 +1,11 @@
 """Sparse-chain decoder: few big segments as pure XLA data movement.
 
-Zeros-like vectors (z9m: 6 sequences for 9.4 MB) and incompressible
-data (b3444k: literal-dominated, uncompressed blocks) spend all their
-bytes in a handful of giant segments.  The reference handles these in
-the same byte loop as everything else (lib/lz4ada.adb:780-817); on TPU
-the right shape is a tiny host-built *program* of vector operations:
+Zeros-like streams (a 9 MB run of zeros is a handful of sequences) and
+incompressible data (literal runs, uncompressed blocks) spend all their
+bytes in a few giant segments.  The reference handles these in the
+same byte loop as everything else (lib/lz4ada.adb:780-817); on the
+device the right shape is a tiny host-built *program* of vector
+operations:
 
   copy  dst <- comp[src : src+n]     literal runs / uncompressed blocks
   fill  dst <- tile(pattern)[:n]     matches with small offsets (RLE);
@@ -16,16 +17,16 @@ the right shape is a tiny host-built *program* of vector operations:
                                      offset-sized chunks when the match
                                      self-overlaps
 
-The program executes as a chain of dynamic_update_slice ops inside one
-XLA computation — HBM-bandwidth fills, no Pallas needed.  Chains whose
-matches cannot be expressed this way (deep patterns, too many chunks)
-are rejected at build time; the pipeline falls back to the segment
-kernel (pallas_decode.py) or the dense MXU kernel (mxu2.py).
+The program runs as one XLA computation: a concatenation of slices and
+fills (``jnp.full`` for a uniform byte), or a chain of
+dynamic_update_slice ops when a segment copies earlier output.  Chains
+whose matches cannot be expressed this way (deep patterns, too many
+chunks) are rejected at build time and go to the resolver
+(device/decode.py).
 
-Program shapes are static per input; jit caching is keyed on the op
-list, which the pipeline buckets by vector identity (a decode service
-reuses the compiled program across repeated inputs of the same frame
-layout).
+jit caching is keyed on the op list without the copies' input offsets
+(those are runtime operands), so blocks of one layout anywhere in any
+stream share a compiled program.
 """
 
 from __future__ import annotations
@@ -145,191 +146,60 @@ def build_sparse_program(
     return SparseProgram(ops=tuple(b.ops), n_out=b.pos)
 
 
-_FILL_BLK = 1 << 19     # Pallas fill-kernel block (512 KiB)
-
-
-def _plan_block_fill(ops: tuple, n_out: int):
-    """Uniform-fill block plan: per-512KiB-block byte values plus small
-    patch segments for everything else.  Returns (vals, patches) or
-    None when the program isn't fill-dominated.
-
-    Rationale: XLA materializes uint8 fills at ~85 GB/s on v5e; a
-    Pallas block-fill kernel writes at ~215 GB/s (measured).  Zeros-like
-    vectors (z9m) are one giant memset, so this is the difference
-    between 14 GB/s and HBM-class decode for the RLE corpus.
-    """
-    n_b = -(-n_out // _FILL_BLK)
-    vals = np.zeros(n_b, np.int32)
-    covered = np.zeros(n_b, bool)
-    uniform = [op.kind == "fill" and len(set(op.pattern)) == 1
-               for op in ops]
-    if any(op.kind == "self" for op in ops):
-        return None
-
-    # Pass 1 — block ownership.  A uniform fill owns every block it
-    # fully covers, and CLAIMS a partial head/tail block when its
-    # share of that block is the largest among uniform fills (e.g.
-    # z9m: [copy 1 B | fill 9.4 MB | copy 5 B] — the fill starts 1
-    # byte in, so block 0 is 512Ki-1/512Ki fill; claiming it leaves a
-    # 1-byte patch instead of a 512 KiB one).
-    best_share: dict = {}       # partial block -> (share, op index)
-    for k, op in enumerate(ops):
-        if not uniform[k]:
-            continue
-        b_lo = -(-op.dst // _FILL_BLK)
-        b_hi = (op.dst + op.n) // _FILL_BLK
-        if b_hi > b_lo:
-            vals[b_lo:b_hi] = op.pattern[0]
-            covered[b_lo:b_hi] = True
-        b0 = op.dst // _FILL_BLK
-        b1 = (op.dst + op.n - 1) // _FILL_BLK
-        for b in {b0, b1}:
-            lo = max(op.dst, b * _FILL_BLK)
-            hi = min(op.dst + op.n, (b + 1) * _FILL_BLK)
-            if hi - lo in (0, _FILL_BLK):
-                continue            # empty or fully covered above
-            if hi - lo > best_share.get(b, (0, -1))[0]:
-                best_share[b] = (hi - lo, k)
-    owner = {}
-    for b, (share, k) in best_share.items():
-        if not covered[b]:
-            vals[b] = ops[k].pattern[0]
-            covered[b] = True
-            owner[b] = k
-
-    # Pass 2 — patches: every byte not written by its block's fill.
-    # Uniform-fill fragments are broadcast dynamic_update_slices
-    # (compile-time constants, bandwidth-only), so only NON-uniform
-    # patch bytes count against the budget.
-    patches: list = []          # (dst, op, rel_lo, n)
-    patch_bytes = 0
-    for k, op in enumerate(ops):
-        if uniform[k]:
-            b0 = op.dst // _FILL_BLK
-            b1 = (op.dst + op.n - 1) // _FILL_BLK
-            for b in sorted({b0, b1}):
-                lo = max(op.dst, b * _FILL_BLK)
-                hi = min(op.dst + op.n, (b + 1) * _FILL_BLK)
-                if hi - lo in (0, _FILL_BLK) or owner.get(b) == k:
-                    continue
-                patches.append((lo, op, lo - op.dst, hi - lo))
-        else:
-            patches.append((op.dst, op, 0, op.n))
-            patch_bytes += op.n
-    if patch_bytes > max(1 << 16, n_out >> 6) or len(patches) > 1024:
-        return None
-    if not covered.any():
-        # nothing to block-fill: the hole-free concat path is cheaper
-        return None
-    # uncovered blocks are fully patched (ops tile [0, n) contiguously)
-    return vals.reshape(-1, 1), tuple(patches)
-
-
-def _block_fill(vals: np.ndarray):
-    """Fill n_b 512KiB blocks, each with its own byte, via one Pallas
-    kernel (grid-streamed, ~2x the XLA uint8 fill rate)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_b = vals.shape[0]
-    rows = _FILL_BLK // 128
-
-    def kern(vals_ref, o_ref):
-        v = vals_ref[pl.program_id(0) % 8, 0]
-        o_ref[...] = jnp.full((rows, 128), v, jnp.int32).astype(jnp.uint8)
-
-    vals8 = np.concatenate(
-        [vals, np.zeros(((-vals.shape[0]) % 8, 1), np.int32)]
-    )
-    return pl.pallas_call(
-        kern,
-        grid=(n_b,),
-        # windowed SMEM, 8 rows per window (whole-array SMEM inputs cap
-        # out around 1024 rows — see mxu2._decode_dense2_device)
-        in_specs=[pl.BlockSpec((8, 1), lambda i: (i // 8, 0),
-                               memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec((rows, 128), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_b * rows, 128), jnp.uint8),
-        interpret=jax.default_backend() == "cpu",
-    )(jnp.asarray(vals8)).reshape(-1)
+def _program_key(ops: tuple) -> tuple:
+    """The static part of a program: everything but the compressed-input
+    offsets of its copies, which are runtime operands — blocks of the
+    same layout at different places in a stream share one compile."""
+    return tuple((op.kind, op.dst, op.n, op.src if op.kind == "self" else 0,
+                  op.pattern) for op in ops)
 
 
 @functools.lru_cache(maxsize=256)
-def _compile_program(ops: tuple, n_out: int):
-    """Compile a sparse program to a jitted device function.
-
-    The returned function may produce an array LONGER than n_out
-    (block-fill padding); callers slice to the chain length host-side.
-    """
+def _compile_program(key: tuple, n_out: int):
+    """Compile a sparse program to a jitted ``fn(comp, copy_srcs)``
+    returning uint8 [n_out]."""
     import jax
     import jax.numpy as jnp
 
-    def _fill_seg(op):
-        if len(set(op.pattern)) == 1:      # uniform byte -> pure memset
-            return jnp.full((op.n,), op.pattern[0], jnp.uint8)
-        pat = jnp.asarray(np.frombuffer(op.pattern, np.uint8))
-        reps = (op.n + len(op.pattern) - 1) // len(op.pattern)
-        return jnp.tile(pat, reps)[: op.n]
+    def _fill_seg(n, pattern):
+        if len(set(pattern)) == 1:      # uniform byte -> pure memset
+            return jnp.full((n,), pattern[0], jnp.uint8)
+        pat = jnp.asarray(np.frombuffer(pattern, np.uint8))
+        reps = (n + len(pattern) - 1) // len(pattern)
+        return jnp.tile(pat, reps)[:n]
 
-    plan = _plan_block_fill(ops, n_out)
-    if plan is not None:
-        vals, patches = plan
+    has_self = any(op[0] == "self" for op in key)
 
-        def run_fill(comp):
-            out = _block_fill(vals)
-            for dst, op, rel, n in patches:
-                if op.kind == "copy":
-                    seg = jax.lax.dynamic_slice(comp, (op.src + rel,), (n,))
-                else:
-                    pat = np.frombuffer(op.pattern, np.uint8)
-                    reps = -(-(rel + n) // pat.size)
-                    seg = jnp.asarray(np.tile(pat, reps)[rel:rel + n])
-                out = jax.lax.dynamic_update_slice(out, seg, (dst,))
-            return out
-
-        return jax.jit(run_fill)
-
-    if all(op.kind != "self" for op in ops):
-        # Segments are emitted in output order with no holes: build the
-        # result as one concatenation — no zero-init, no update copies.
-        def run(comp):
-            segs = [
-                jax.lax.dynamic_slice(comp, (op.src,), (op.n,))
-                if op.kind == "copy" else _fill_seg(op)
-                for op in ops
-            ]
-            return segs[0] if len(segs) == 1 else jnp.concatenate(segs)
-
-        return jax.jit(run)
-
-    def run(comp):
-        out = jnp.zeros((max(n_out, 1),), jnp.uint8)
-        for op in ops:
-            if op.kind == "copy":
-                seg = jax.lax.dynamic_slice(comp, (op.src,), (op.n,))
-            elif op.kind == "fill":
-                seg = _fill_seg(op)
+    def run(comp, copy_srcs):
+        # Without 'self' ops the segments tile the output in order with
+        # no holes: one concatenation — no zero-init, no update copies.
+        out = jnp.zeros((max(n_out, 1),), jnp.uint8) if has_self else None
+        segs = []
+        k = 0
+        for kind, dst, n, src, pattern in key:
+            if kind == "copy":
+                seg = jax.lax.dynamic_slice(comp, (copy_srcs[k],), (n,))
+                k += 1
+            elif kind == "fill":
+                seg = _fill_seg(n, pattern)
             else:
-                seg = jax.lax.dynamic_slice(out, (op.src,), (op.n,))
-            out = jax.lax.dynamic_update_slice(out, seg, (op.dst,))
-        return out
+                seg = jax.lax.dynamic_slice(out, (src,), (n,))
+            if has_self:
+                out = jax.lax.dynamic_update_slice(out, seg, (dst,))
+            else:
+                segs.append(seg)
+        if has_self:
+            return out[:n_out]
+        return segs[0] if len(segs) == 1 else jnp.concatenate(segs)
 
     return jax.jit(run)
 
 
 def decode_sparse_device(program: SparseProgram, comp_dev):
-    """Run the program on device; returns the uint8 output array.
-    May be longer than program.n_out (block-fill padding) — slice
-    host-side."""
-    return _compile_program(program.ops, program.n_out)(comp_dev)
-
-
-def decode_sparse(program: SparseProgram, buf: np.ndarray) -> bytes:
-    import jax
-    import jax.numpy as jnp
-
-    out = decode_sparse_device(program, jnp.asarray(buf))
-    return np.asarray(jax.device_get(out))[: program.n_out].tobytes()
+    """Run the program on device; returns the uint8 [n_out] array.
+    ``comp_dev`` is the request's staged compressed buffer (any
+    padding beyond the stream is never read)."""
+    srcs = np.array([op.src for op in program.ops if op.kind == "copy"],
+                    np.int32)
+    fn = _compile_program(_program_key(program.ops), program.n_out)
+    return fn(comp_dev, srcs)

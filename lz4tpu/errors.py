@@ -1,4 +1,4 @@
-"""Error taxonomy for the TPU-native LZ4 codec.
+"""Error taxonomy for the lz4tpu LZ4 codec.
 
 The exception *classes* mirror the five exceptions of the reference library
 (reference: lib/lz4ada.ads:133-162) and the *message strings* are

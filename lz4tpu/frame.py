@@ -5,7 +5,7 @@ The streaming core (lz4tpu.stream) is a push parser for incremental
 input; this module is its batch counterpart: given a complete buffer it
 walks every frame (modern / legacy / skippable, concatenated in any
 mix), validates headers with the same error taxonomy and messages, and
-emits a flat block index that the TPU pipeline consumes.
+emits a flat block index that the device pipeline consumes.
 
 Validation performed here (identical checks and messages as the
 streaming core): magic, version/reserved bits, BD code, header

@@ -1,14 +1,20 @@
 """Loader for the native host engine (lz4core.cpp).
 
-Compiles the shared library on first use with g++ (cached next to the
-source), binds it via ctypes. Everything here has a pure-Python fallback
+Compiles the shared library on first use with g++ and binds it via
+ctypes.  The library is tuned for the host it is built on
+(``-march=native``), so its file name carries a hash of the source, the
+compiler flags and the host CPU: a checkout copied to another machine
+builds its own library from the committed source instead of loading
+one built elsewhere.  Everything here has a pure-Python fallback
 elsewhere in the package; callers use :func:`available` to pick.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -17,7 +23,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "lz4core.cpp")
-_SO = os.path.join(_HERE, "_lz4core.so")
+_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC",
+          "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
 _lib = None
@@ -32,18 +39,36 @@ E_DST_OVERFLOW = 5
 E_SEQ_OVERFLOW = 6
 
 
-def _build() -> None:
+def _host_cpu() -> str:
+    """What ``-march=native`` compiles for: the CPU model and its
+    feature flags (Linux), else what the platform module reports."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f
+                     if ln.startswith(("model name", "flags", "Features"))]
+        return "".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine() + platform.processor()
+
+
+def _so_path() -> str:
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_host_cpu().encode())
+    return os.path.join(_HERE, f"_lz4core.{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> None:
     with tempfile.TemporaryDirectory(dir=_HERE) as td:
         tmp_so = os.path.join(td, "_lz4core.so")
         subprocess.run(
-            [
-                "g++", "-O3", "-march=native", "-funroll-loops", "-shared",
-                "-fPIC", "-std=c++17", "-pthread", "-o", tmp_so, _SRC,
-            ],
+            ["g++", *_FLAGS, "-o", tmp_so, _SRC],
             check=True,
             capture_output=True,
         )
-        os.replace(tmp_so, _SO)
+        os.replace(tmp_so, so)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -89,26 +114,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         c.POINTER(c.c_uint16), c.POINTER(c.c_uint16),  # elen, eoff
         u8p, c.c_int64,                           # dst, cap
     ]
-    lib.lz4tpu_pack_dense2.restype = c.c_int64
-    lib.lz4tpu_pack_dense2.argtypes = [
-        u8p, c.c_int64, i32p, i32p, i32p, i32p, c.c_int64, i32p, c.c_int64,
-    ]
-    lib.lz4tpu_pack_dense2_par.restype = c.c_int64
-    lib.lz4tpu_pack_dense2_par.argtypes = [
-        u8p, c.c_int64, i32p, i32p, i32p, i32p, c.c_int64, i32p, c.c_int64,
-        c.c_int32,
-    ]
-    lib.lz4tpu_prep_fused.restype = c.c_int32
-    lib.lz4tpu_prep_fused.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p, c.c_int64,                           # buf, buf_len
-        c.c_int64, c.c_int64,                     # lit_base, n_win
-        u8p, c.c_int64,                           # lits, lit_cap
-        i32p, i32p, i32p, i32p,                   # winq, scal,
-        i32p,                                     # seqrec, patch, hw
-        i64p,                                     # counts
-        c.c_int32,                                # n_threads
-    ]
     lib.lz4tpu_scan_block_full.restype = c.c_int64
     lib.lz4tpu_scan_block_full.argtypes = [
         u8p, c.c_int64, c.c_int64,                # src, src_len, lit_base
@@ -116,49 +121,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         u8p, c.c_int64,                           # lits, lits_cap
         c.c_int64, i64p, i64p, i64p, i64p,        # cap, total, reach,
                                                   # n_lit, max_off
-    ]
-    lib.lz4tpu_prep_last_ranges.restype = c.c_int64
-    lib.lz4tpu_prep_last_ranges.argtypes = [i64p, c.c_int64]
-    lib.lz4tpu_prep_phase1.restype = c.c_int32
-    lib.lz4tpu_prep_phase1.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p, c.c_int64,                           # buf, buf_len
-        i32p, i32p,                               # starts, litpos (S+2)
-        u8p, c.c_int64,                           # lits, lit_cap
-        i64p,                                     # meta [3]
-    ]
-    lib.lz4tpu_prep_fused_pre_range.restype = c.c_int32
-    lib.lz4tpu_prep_fused_pre_range.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p,                                      # buf
-        c.c_int64,                                # n_win
-        i32p, i32p,                               # starts, litpos (S+2)
-        u8p, c.c_int64,                           # lits, n_out
-        c.c_int64, c.c_int64,                     # i_lo, i_hi
-        i32p, i32p, i32p, i32p,                   # winq, scal, seqrec,
-        i32p,                                     # patch, hw
-        i64p,                                     # counts
-    ]
-    lib.lz4tpu_resolve_window.restype = c.c_int32
-    lib.lz4tpu_resolve_window.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,        # ll, ml, mo, ls, S
-        u8p,                                       # buf
-        i32p,                                      # starts [S+1]
-        c.c_int64, c.c_int64,                      # B, W
-        u8p,                                       # out [W]
-        c.c_int64,                                 # hop budget
-    ]
-    lib.lz4tpu_prep_fused_pre.restype = c.c_int32
-    lib.lz4tpu_prep_fused_pre.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p,                                      # buf
-        c.c_int64,                                # n_win
-        i32p, i32p,                               # starts, litpos (S+2)
-        u8p, c.c_int64,                           # lits, n_out
-        i32p, i32p, i32p, i32p,                   # winq, scal, seqrec, patch
-        i32p,                                     # hw
-        i64p,                                     # counts
-        c.c_int32,                                # n_threads
     ]
     return lib
 
@@ -173,9 +135,10 @@ def _get() -> ctypes.CDLL:
         if _load_error is not None:
             raise _load_error
         try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build()
-            _lib = _bind(ctypes.CDLL(_SO))
+            so = _so_path()
+            if not os.path.exists(so):
+                _build(so)
+            _lib = _bind(ctypes.CDLL(so))
         except Exception as exc:  # pragma: no cover - environment dependent
             _load_error = exc
             raise
@@ -306,60 +269,9 @@ def scan_sequences(
     )
 
 
-def prep_last_ranges() -> np.ndarray:
-    """Per-range instrumentation of the LAST lz4tpu_prep_fused[_pre]
-    call: (n, 4) int64 rows [sub_lo, sub_hi, n_records, n_patches].
-
-    Rows are recorded only while LZ4TPU_PREP_COUNTERS=1 (a test hook:
-    tests/test_prep_threads.py pins that the threaded prep's range
-    partitioning genuinely divides the serial loop — phase counters,
-    not wall time, per the one-core box's measurement rules).  The
-    serial pass records a single row spanning every substep."""
-    c = ctypes
-    buf = np.zeros((256, 4), np.int64)
-    n = _get().lz4tpu_prep_last_ranges(
-        buf.ctypes.data_as(c.POINTER(c.c_int64)), 256
-    )
-    return buf[:n]
-
-
-def resolve_window(
-    lit_len: np.ndarray,
-    match_len: np.ndarray,
-    match_off: np.ndarray,
-    lit_src: np.ndarray,
-    buf: np.ndarray,
-    starts: np.ndarray,
-    boundary: int,
-    nbytes: int,
-    out: np.ndarray | None = None,
-    hop_budget: int = 1 << 24,
-) -> np.ndarray:
-    """Chain output bytes [boundary - nbytes, boundary) materialized by
-    provenance chain-following (lz4tpu_resolve_window) — the boundary
-    ring seed of span-parallel decode (lz4tpu/spans.py).  ``starts`` is
-    the int32 [S+1] chain-local size prefix.  Bit-identical to
-    spans.resolve_ring_bytes (differential-tested).  Raises ValueError
-    when a chain walk exceeds the native depth cap (callers fall back
-    to the numpy resolver or skip span-splitting)."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-    if out is None:
-        out = np.empty(nbytes, np.uint8)
-    st = _get().lz4tpu_resolve_window(
-        lit_len.ctypes.data_as(i32p), match_len.ctypes.data_as(i32p),
-        match_off.ctypes.data_as(i32p), lit_src.ctypes.data_as(i32p),
-        lit_len.size, _u8ptr(buf), starts.ctypes.data_as(i32p),
-        boundary, nbytes, _u8ptr(out), hop_budget,
-    )
-    if st != 0:
-        raise ValueError(f"resolve_window failed with status {st}")
-    return out
-
-
 def pack_threads() -> int:
-    """Worker threads for the host-parallel stages (per-block token
-    scan and the provenance resolver): the LZ4TPU_PACK_THREADS env var
+    """Worker threads for the host-parallel per-block token scan: the
+    LZ4TPU_PACK_THREADS env var
     when it parses as a positive integer, else the CPU count."""
     import os
 
@@ -370,47 +282,6 @@ def pack_threads() -> int:
         except ValueError:
             pass  # a tuning knob must not take down the decode path
     return os.cpu_count() or 1
-
-
-def pack_dense2_chain(
-    buf: np.ndarray,
-    lit_len: np.ndarray,
-    lit_src: np.ndarray,
-    match_len: np.ndarray,
-    match_off: np.ndarray,
-    out: np.ndarray | None = None,
-    threads: int | None = None,
-) -> tuple[np.ndarray, int]:
-    """Per-byte provenance codes for one chain (device/mxu2.py pack).
-
-    Returns (code int32 [n_out], n_out); bit-identical to the numpy
-    resolver in mxu2._pack_chain (asserted by tests).  When `out` is
-    given, codes are written in place into it (it must be contiguous
-    int32 with >= n_out + 16 elements; the resolver wild-writes up to
-    16 words past n_out and re-zeroes them) and the returned array is
-    a view of out.  `threads` > 1 packs substep-aligned ranges in
-    parallel (bit-identical; default from pack_threads()).
-    """
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-    n_out = int(np.sum(lit_len, dtype=np.int64)
-                + np.sum(match_len, dtype=np.int64))
-    if out is None:
-        code = np.zeros(n_out + 16, np.int32)
-    else:
-        code = out
-        if code.size < n_out + 16:
-            raise ValueError("pack_dense2 out buffer too small")
-    n_threads = pack_threads() if threads is None else max(1, threads)
-    n = _get().lz4tpu_pack_dense2_par(
-        _u8ptr(buf), buf.size,
-        lit_len.ctypes.data_as(i32p), lit_src.ctypes.data_as(i32p),
-        match_len.ctypes.data_as(i32p), match_off.ctypes.data_as(i32p),
-        lit_len.size, code.ctypes.data_as(i32p), code.size, n_threads,
-    )
-    if n < 0:
-        raise ValueError(f"pack_dense2 failed with status {-n}")
-    return code[:n], int(n)
 
 
 def compress_block_cands(
@@ -496,25 +367,14 @@ def compress_block(
     return dst[:n].tobytes()
 
 
-_PREP_OVERFLOW = {
-    -10: "seq records per substep (budget)",
-    -11: "in-substep patches (budget)",
-    -12: "field delta exceeds digit range",
-    -13: "patch literal outside window",
-    -14: "patch chain deeper than 64",
-    -15: "literal affine constant range",
-    -16: "match spans cross >64 substeps",
-}
-
-
 _scan_full_arena = threading.local()
 
 
 def scan_block_full(src, comp_off: int = 0):
     """Single-block full scan: the token scan plus, in the same native
     pass, the cumulative literal-position column, the flat extracted
-    literal stream, and the S/S+1 sentinel slots the fused prep's
-    bisects need (lz4core.cpp lz4tpu_scan_block_full).
+    literal stream, and S/S+1 sentinel slots (lz4core.cpp
+    lz4tpu_scan_block_full).
 
     Returns ``(status, starts_ext, ll, ls, ml, mo, litpos_ext, lits,
     total, min_reach, max_off)`` where ``starts_ext``/``litpos_ext``
@@ -555,143 +415,3 @@ def scan_block_full(src, comp_off: int = 0):
     return (OK, starts[:n + 2], ll[:n], ls[:n], ml[:n], mo[:n],
             litpos[:n + 2], lits[:int(n_lit.value)],
             int(total.value), int(reach.value), int(moff.value))
-
-
-def prep_fused_chain_pre(ll, ml, mo, ls, buf, n_win, starts, litpos,
-                         lits, n_out, winq, scal, seqrec, patch,
-                         hw=None, n_threads=None):
-    """Native fused prep from scan_block_full outputs (phase 1 —
-    prefix sums + literal extraction — already done at scan time).
-
-    ``hw`` is the pool's per-substep [n_sub, 2] int32 dirty high-water
-    array (carried with the seqrec/patch buffers): tail zeroing stops
-    at the previous request's counts instead of the slot capacity."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    counts = np.zeros(4, np.int64)
-    buf8 = _as_u8(buf)
-    st = _get().lz4tpu_prep_fused_pre(
-        ip(ll), ip(ml), ip(mo), ip(ls), c.c_int64(ll.size),
-        _u8ptr(buf8), c.c_int64(n_win),
-        ip(starts), ip(litpos),
-        _u8ptr(lits), c.c_int64(n_out),
-        ip(winq), ip(scal), ip(seqrec), ip(patch),
-        ip(hw) if hw is not None else i32p(),
-        counts.ctypes.data_as(c.POINTER(c.c_int64)),
-        c.c_int32(n_threads if n_threads is not None
-                  else pack_threads()),
-    )
-    if st != 0:
-        raise ValueError(_PREP_OVERFLOW.get(st, f"prep status {st}"))
-    return (int(counts[0]), int(counts[1]),
-            int(counts[2]), int(counts[3]))
-
-
-def prep_phase1(ll, ml, mo, ls, buf):
-    """Reconstruct the scan fast-path tuple (pipeline.SeqTable.pre)
-    for an arbitrary single-chain sequence table: size/literal
-    prefixes with sentinels, the extracted flat literal stream, and
-    the chain's max match offset — phase 1 of the fused prep into
-    caller-owned arrays (lz4core.cpp lz4tpu_prep_phase1).  Multi-block
-    chains get the pipelined range prep through this."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    S = ll.size
-    ll32 = np.ascontiguousarray(ll, np.int32)
-    ml32 = np.ascontiguousarray(ml, np.int32)
-    mo32 = np.ascontiguousarray(mo, np.int32)
-    ls32 = np.ascontiguousarray(ls, np.int32)
-    buf8 = _as_u8(buf)
-    starts = np.empty(S + 2, np.int32)
-    litpos = np.empty(S + 2, np.int32)
-    n_lit_cap = int(np.sum(ll32, dtype=np.int64)) + 16
-    lits = np.empty(max(n_lit_cap, 16), np.uint8)
-    meta = np.zeros(3, np.int64)
-    st = _get().lz4tpu_prep_phase1(
-        ip(ll32), ip(ml32), ip(mo32), ip(ls32), c.c_int64(S),
-        _u8ptr(buf8), c.c_int64(buf8.size),
-        ip(starts), ip(litpos), _u8ptr(lits), c.c_int64(lits.size),
-        meta.ctypes.data_as(c.POINTER(c.c_int64)),
-    )
-    if st != 0:
-        raise ValueError(f"prep_phase1 status {st}")
-    return starts, litpos, lits[:int(meta[1])], int(meta[2])
-
-
-def prep_fused_pre_range(ll, ml, mo, ls, buf, n_win, starts, litpos,
-                         lits, n_out, i_lo, i_hi,
-                         winq, scal, seqrec, patch, hw=None):
-    """Native fused prep of ONLY substeps [i_lo, i_hi) (the pipelined
-    single-stream decode, fused.decode_fused_pipelined): writes land
-    at GLOBAL substep offsets in the caller's full-size arrays.
-    Content is bit-identical to the whole-chain prep over the range,
-    except the range's first reload flag is forced to 1 (differential-
-    tested).  Returns (n_seq_recs, n_patches, max_recs, max_patches)
-    for the range."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    counts = np.zeros(4, np.int64)
-    buf8 = _as_u8(buf)
-    st = _get().lz4tpu_prep_fused_pre_range(
-        ip(ll), ip(ml), ip(mo), ip(ls), c.c_int64(ll.size),
-        _u8ptr(buf8), c.c_int64(n_win),
-        ip(starts), ip(litpos),
-        _u8ptr(lits), c.c_int64(n_out),
-        c.c_int64(i_lo), c.c_int64(i_hi),
-        ip(winq), ip(scal), ip(seqrec), ip(patch),
-        ip(hw) if hw is not None else i32p(),
-        counts.ctypes.data_as(c.POINTER(c.c_int64)),
-    )
-    if st != 0:
-        raise ValueError(_PREP_OVERFLOW.get(st, f"prep status {st}"))
-    return (int(counts[0]), int(counts[1]),
-            int(counts[2]), int(counts[3]))
-
-
-def prep_fused_chain(ll, ml, mo, ls, buf, lit_base, n_win,
-                     lits, winq, scal, seqrec, patch, hw=None,
-                     n_threads=None):
-    """Native fused-engine prep for one chain (device/fused.py layout).
-
-    Writes into the caller's zeroed per-chain array views; returns
-    (n_seq_recs, n_patches).  Raises ValueError with an overflow
-    message (the fused module wraps it in FusedOverflow)."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    counts = np.zeros(4, np.int64)
-    buf8 = _as_u8(buf)
-    st = _get().lz4tpu_prep_fused(
-        ip(ll), ip(ml), ip(mo), ip(ls), c.c_int64(ll.size),
-        _u8ptr(buf8), c.c_int64(buf8.size),
-        c.c_int64(lit_base), c.c_int64(n_win),
-        _u8ptr(lits), c.c_int64(lits.size),
-        ip(winq), ip(scal), ip(seqrec), ip(patch),
-        ip(hw) if hw is not None else i32p(),
-        counts.ctypes.data_as(c.POINTER(c.c_int64)),
-        c.c_int32(n_threads if n_threads is not None
-                  else pack_threads()),
-    )
-    if st != 0:
-        raise ValueError(_PREP_OVERFLOW.get(st, f"prep status {st}"))
-    return (int(counts[0]), int(counts[1]),
-            int(counts[2]), int(counts[3]))

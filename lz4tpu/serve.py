@@ -4,24 +4,19 @@ execution.
 A decode request passes through two stages with very different
 resources:
 
-  host   frame parse -> native token scan -> provenance pack
-         (lz4tpu/native, single-core C++; ~msec per request)
-  device sparse XLA programs / dense MXU routing kernel
-         (lz4tpu/device; async-dispatched, runs on the TPU)
+  host   frame parse -> native token scan -> plan -> staging
+         (lz4tpu/native C++ and numpy)
+  device sparse XLA programs / the byte-parallel resolver
+         (lz4tpu/device; dispatched asynchronously)
 
 The reference is a synchronous pull parser — one `Update` call does
-both jobs on one core (lib/lz4ada.adb:383-418).  On TPU the idiomatic
-shape is a two-stage pipeline: JAX dispatch is asynchronous, so as soon
-as request N's kernels are enqueued the host core is free to parse and
-pack request N+1 while the TPU chews on N.  ``DecodeSession`` packages
-that: a background thread runs the host stage and enqueues device work;
-callers collect results in submission order.
-
-Host-stage packing is substep-parallel by construction — ring codes
-never read other codes and inherit codes only read within their own
-2 KiB substep (see native lz4tpu_pack_dense2) — so on multi-core hosts
-the prep thread can be sharded further; this box exposes one core, so
-the session keeps a single prep thread.
+both jobs on one core (lib/lz4ada.adb:383-418).  With an accelerator
+the idiomatic shape is a two-stage pipeline: JAX dispatch is
+asynchronous, so as soon as request N's programs are enqueued the host
+is free to parse and scan request N+1 while the GPU decodes N.
+``DecodeSession`` packages that: a background thread runs the host
+stage and enqueues device work; callers collect results in submission
+order.
 
 Usage::
 
@@ -57,9 +52,9 @@ class DecodeTicket:
         self._buf: np.ndarray | None = None
         self._parsed = None
         self._table = None
-        self._segs: list | None = None   # [(out_lo, device array)]
+        self._out_dev = None             # device result (None: no output)
+        self._comp_dev = None            # staged input (block checksums)
         self._out_np: bytes | None = None
-        self._out_dev = None             # cached device-resident result
         self._verified = False           # checksums checked (either path)
 
     # -- prep-thread side -------------------------------------------------
@@ -67,11 +62,12 @@ class DecodeTicket:
         self._error = exc
         self._done.set()
 
-    def _finish(self, buf, parsed, table, segs) -> None:
+    def _finish(self, buf, parsed, table, out_dev, comp_dev) -> None:
         self._buf = buf
         self._parsed = parsed
         self._table = table
-        self._segs = segs
+        self._out_dev = out_dev
+        self._comp_dev = comp_dev
         self._done.set()
 
     # -- caller side --------------------------------------------------------
@@ -85,44 +81,27 @@ class DecodeTicket:
             self._released = True
         self._session._slots.release()
 
-    def result(self, timeout: float | None = None) -> bytes:
+    def _wait(self, timeout: float | None) -> None:
         if not self._done.wait(timeout):
             raise TimeoutError("decode not finished")
         self._release_slot_once()
         if self._error is not None:
             raise self._error
+
+    def result(self, timeout: float | None = None) -> bytes:
+        self._wait(timeout)
         if self._out_np is None:
             import jax
 
-            if self._table is None:        # empty input fast path
-                self._out_np = b""
-                self._verified = True
-            elif self._segs is None:
-                # already collected via result_on_device: fetch that
+            out = b""
+            if self._out_dev is not None:
                 out = np.asarray(jax.device_get(self._out_dev)).tobytes()
-                if not self._verified:
-                    # collected earlier with verify="none": settle the
-                    # checksum contract now that bytes are host-side
+            if not self._verified:
+                if self._table is not None:
                     self._session._verify(self._buf, self._parsed, out,
                                           self._table)
-                    self._mark_verified()
-                self._out_np = out
-            else:
-                out = bytearray(self._table.n_out)
-                for lo, arr in self._segs:
-                    seg = np.asarray(jax.device_get(arr))
-                    out[lo:lo + seg.size] = seg.tobytes()
-                out = bytes(out)
-                if not self._verified:
-                    # a prior result_on_device(verify="device") may have
-                    # settled the contract already (and dropped the
-                    # inputs it needed) while leaving zero-output segs
-                    # in place — do not verify twice
-                    self._session._verify(self._buf, self._parsed, out,
-                                          self._table)
-                self._out_np = out
-                self._segs = None
                 self._mark_verified()
+            self._out_np = out
         return self._out_np
 
     def _mark_verified(self) -> None:
@@ -130,13 +109,14 @@ class DecodeTicket:
         self._verified = True
         self._buf = None
         self._parsed = None
+        self._comp_dev = None
 
     def result_on_device(self, timeout: float | None = None,
                          verify: str = "device"):
         """Like result(), but the decoded bytes stay a device-resident
-        uint8 jax.Array (the HBM consumer path, cf.
-        decompress_to_device).  verify: "device" (content checksums via
-        the Pallas xxh32 segment hasher, no output fetch) or "none"
+        uint8 jax.Array (the GPU consumer path, cf.
+        decompress_to_device).  verify: "device" (block and content
+        checksums through the xxh32 kernel, no output fetch) or "none"
         (skip for now; a later result() on the same ticket still
         verifies before returning bytes).
         """
@@ -145,49 +125,26 @@ class DecodeTicket:
                 f"result_on_device verify must be 'device' or 'none', "
                 f"got {verify!r}"
             )
-        if not self._done.wait(timeout):
-            raise TimeoutError("decode not finished")
-        self._release_slot_once()
-        if self._error is not None:
-            raise self._error
-        import jax
+        self._wait(timeout)
         import jax.numpy as jnp
 
-        def _verify_dev(out_dev):
-            if verify == "device" and not self._verified:
-                from .pipeline import _verify_checksums_device
+        if self._out_dev is None:
+            # host bytes (the host-engine fallback, already verified) or
+            # an empty output
+            out = self._out_np or b""
+            self._out_dev = jnp.asarray(np.frombuffer(out, np.uint8))
+        if verify == "device" and not self._verified:
+            from .pipeline import _verify_checksums_device
 
-                if self._table is not None:
-                    _verify_checksums_device(
-                        self._buf, self._parsed, out_dev, self._table,
-                        self._session.interpret
-                        or jax.devices()[0].platform == "cpu",
-                    )
-                self._mark_verified()
-
-        if self._out_dev is not None:
-            _verify_dev(self._out_dev)
-            return self._out_dev
-        if self._out_np is not None:
-            # already collected as host bytes (result() or the host
-            # fallback) — both verified; stage those
-            self._out_dev = jnp.asarray(
-                np.frombuffer(self._out_np, np.uint8)
-            )
-            return self._out_dev
-        if self._table is None or not self._segs:
-            self._out_dev = jnp.zeros(
-                0 if self._table is None else self._table.n_out, jnp.uint8
-            )
-            _verify_dev(self._out_dev)
-            return self._out_dev
-        from .pipeline import assemble_device_segments
-
-        out_dev = assemble_device_segments(self._segs, self._table.n_out)
-        _verify_dev(out_dev)
-        self._out_dev = out_dev
-        self._segs = None
-        return out_dev
+            if self._comp_dev is not None:
+                _verify_checksums_device(
+                    self._parsed, self._out_dev, self._table, self._comp_dev)
+            elif self._table is not None:
+                # nothing decoded: the empty output verifies on host
+                self._session._verify(self._buf, self._parsed, b"",
+                                      self._table)
+            self._mark_verified()
+        return self._out_dev
 
 
 class DecodeSession:
@@ -202,9 +159,8 @@ class DecodeSession:
     """
 
     def __init__(self, reservation: Reservation = FOR_ALL,
-                 max_inflight: int = 4, interpret: bool = False):
+                 max_inflight: int = 4):
         self.reservation = Reservation(reservation)
-        self.interpret = interpret
         self._q: "queue.Queue" = queue.Queue()
         self._max_inflight = max(1, max_inflight)
         self._slots = threading.BoundedSemaphore(self._max_inflight)
@@ -216,14 +172,18 @@ class DecodeSession:
         self._thread.start()
 
     # -- submission ---------------------------------------------------------
-    def submit(self, data) -> DecodeTicket:
+    def submit(self, data, stats: pl.DecodeStats | None = None
+               ) -> DecodeTicket:
+        """Queue one buffer for decoding; ``stats`` (filled by the prep
+        thread before the ticket completes) counts its layers and
+        engines like ``decompress_to_device(stats=...)``."""
         self._slots.acquire()
         t = DecodeTicket(self)
         with self._lock:
             if self._closed:
                 self._slots.release()
                 raise RuntimeError("session closed")
-            self._q.put((t, bytes(data)))
+            self._q.put((t, bytes(data), stats))
         return t
 
     def decode_all(self, blobs) -> list[bytes]:
@@ -259,39 +219,34 @@ class DecodeSession:
             item = self._q.get()
             if item is None:
                 return
-            ticket, data = item
+            ticket, data, stats = item
             try:
-                self._prep_one(ticket, data)
+                self._prep_one(ticket, data, stats)
             except BaseException as e:          # noqa: BLE001
                 ticket._fail(e)
 
-    def _prep_one(self, ticket: DecodeTicket, data: bytes) -> None:
+    def _prep_one(self, ticket: DecodeTicket, data: bytes,
+                  stats: pl.DecodeStats | None) -> None:
         buf = np.frombuffer(data, dtype=np.uint8)
         if buf.size == 0:
-            ticket._finish(buf, None, None, [])
+            ticket._finish(buf, None, None, None, None)
             return
-        parsed = pl.parse_frames(buf, self.reservation)
         try:
-            table = pl.build_seq_table(buf, parsed, self.reservation,
-                                       data, pooled_cols=True)
+            parsed, table, out_dev, comp_dev = pl._decode_on_device(
+                buf, data, self.reservation, stats)
         except pl.BatchCapacityExceeded:
             from .api import decompress_host
 
             # the streaming host engine fully verifies checksums itself
             ticket._out_np = decompress_host(data, self.reservation)
+            if stats is not None:
+                stats.note_engine("host", 0, len(ticket._out_np))
             ticket._verified = True
             ticket._done.set()
             return
-        if table.n_out == 0:
-            ticket._finish(buf, parsed, table, [])
-            return
-        # Enqueue device work (shared with decompress_to_device); jax
-        # dispatch is async, so this returns as soon as the kernels are
-        # queued and the TPU overlaps the next request's prep.
-        segs = pl.build_device_segments(
-            buf, table, pl.plan_decode(buf, parsed, table), self.interpret
-        )
-        ticket._finish(buf, parsed, table, segs)
+        # Device work is enqueued (dispatch is async): the GPU decodes
+        # this request while the thread scans the next one.
+        ticket._finish(buf, parsed, table, out_dev, comp_dev)
 
     # -- result-side checksum verification --------------------------------
     @staticmethod

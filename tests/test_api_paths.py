@@ -22,16 +22,17 @@ def test_batch_host_grows_output_buffer():
 
 
 def test_truncated_frame_mid_stream_diagnostic():
-    V = "/root/reference/test_vectors_lz4"
-    data = open(f"{V}/t389.lz4", "rb").read()
+    from lz4tpu import corpus
+
+    data = corpus.cases()["text_cli_default"][0]
     with pytest.raises(DataCorruption):
         lz4tpu.decompress(data[:len(data) // 2])
 
 
 def test_backend_device_explicit():
-    V = "/root/reference/test_vectors_lz4"
-    data = open(f"{V}/t389.lz4", "rb").read()
-    ref = open(f"{V}/t389.bin", "rb").read()
+    from lz4tpu import corpus
+
+    data, ref = corpus.cases()["concatenated_frames"]
     assert lz4tpu.decompress(data, backend="device") == ref
 
 
@@ -134,8 +135,8 @@ def test_decompress_into_truncated_mid_frame():
 
 
 def test_decompress_auto_platform_probe_failure(monkeypatch):
-    # jax.devices() raising (backend down) must fall back to the host
-    # engine, not propagate.
+    # A JAX backend that fails to start is an error, not a silent
+    # host run: auto must not hide a broken device path.
     import jax
 
     def _raise():
@@ -143,7 +144,58 @@ def test_decompress_auto_platform_probe_failure(monkeypatch):
 
     frame = lz4tpu.compress(b"auto " * 100)
     monkeypatch.setattr(jax, "devices", _raise)
-    assert lz4tpu.decompress(frame, backend="auto") == b"auto " * 100
+    with pytest.raises(RuntimeError, match="backend down"):
+        lz4tpu.decompress(frame, backend="auto")
+
+
+class _FakeDevice:
+    def __init__(self, platform):
+        self.platform = platform
+
+
+@pytest.mark.parametrize("name,expect", [("gpu", "gpu"), ("cpu", "cpu"),
+                                         ("rocm", None), ("metal", None)])
+def test_platform_decision(monkeypatch, name, expect):
+    """One function decides the platform: GPU or CPU, anything else
+    raises; interpret mode follows the CPU."""
+    import jax
+
+    from lz4tpu import device
+
+    monkeypatch.setattr(jax, "devices", lambda: [_FakeDevice(name)])
+    if expect is None:
+        with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+            device.platform()
+    else:
+        assert device.platform() == expect
+        assert device.interpret() == (expect == "cpu")
+
+
+def test_decompress_auto_routes_by_platform_and_size(monkeypatch):
+    """auto: the device pipeline on a GPU for >= 64 KiB, the host
+    engine otherwise (counted under "host" in the stats)."""
+    import lz4tpu.device as device
+    import lz4tpu.pipeline as pl
+    from lz4tpu.pipeline import DecodeStats
+
+    calls = []
+    monkeypatch.setattr(pl, "decompress_device",
+                        lambda d, r, stats: calls.append(len(d)) or b"dev")
+    big_payload = np.random.default_rng(9).integers(
+        0, 256, 100_000, dtype=np.uint8).tobytes()
+    big = lz4tpu.compress(big_payload, content_checksum=False)
+    assert len(big) >= 1 << 16
+    small = lz4tpu.compress(b"small " * 10)
+    monkeypatch.setattr(device, "platform", lambda: "gpu")
+    assert lz4tpu.decompress(big, backend="auto") == b"dev"
+    st = DecodeStats()
+    assert lz4tpu.decompress(small, backend="auto", stats=st) == b"small " * 10
+    assert st.engine_bytes == {"host": 60}
+    monkeypatch.setattr(device, "platform", lambda: "cpu")
+    assert lz4tpu.decompress(big, backend="auto") == big_payload
+    assert calls == [len(big)]
+    with pytest.raises(ValueError, match="unknown backend"):
+        lz4tpu.decompress(small, backend="gpu")
 
 
 def test_decompress_host_empty_input():

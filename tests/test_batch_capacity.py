@@ -58,7 +58,7 @@ def test_decompress_device_falls_back_to_host(huge, monkeypatch):
 
 def test_decompress_to_device_raises_clear_error(huge):
     with pytest.raises(ValueError, match="2\\*\\*31"):
-        lz4tpu.decompress_to_device(huge, interpret=True)
+        lz4tpu.decompress_to_device(huge)
 
 
 def test_host_engine_actually_decodes_it(huge):

@@ -14,7 +14,6 @@ window (lz4ada.ads:189-220, README.md:462-481).  lz4tpu mirrors it:
   * ``lz4tpu.min_buffer_size(reservation)`` — the sizing query.
 """
 
-import pathlib
 
 import numpy as np
 import pytest
@@ -29,13 +28,10 @@ from lz4tpu import (
     min_buffer_size,
 )
 
-VEC = pathlib.Path("/root/reference/test_vectors_lz4")
-
-
 def _vec(name):
-    data = (VEC / f"{name}.lz4").read_bytes()
-    ref = (VEC / f"{name}.bin").read_bytes()
-    return data, ref
+    from conftest import stand_in
+
+    return stand_in(name)
 
 
 def _drive_update_into(data, ctx, buffer, chunk=4096):

@@ -13,14 +13,13 @@ xxhash32ada.adb, test_run.sh (vector runner semantics).
 """
 
 import io
-import pathlib
 import sys
 
 import pytest
 
 import lz4tpu
 
-V = pathlib.Path("/root/reference/test_vectors_lz4")
+from conftest import stand_in  # noqa: E402
 
 
 def run_cli(argv, stdin: bytes = b"") -> tuple[int, bytes, str]:
@@ -48,7 +47,7 @@ def run_cli(argv, stdin: bytes = b"") -> tuple[int, bytes, str]:
 def _bin(name: str) -> bytes:
     if name == "z9m":
         return b"\x00" * 9437166   # ground truth absent upstream
-    return (V / f"{name}.bin").read_bytes()
+    return stand_in(name)[1]
 
 
 @pytest.mark.parametrize(
@@ -60,7 +59,7 @@ def _bin(name: str) -> bytes:
 def test_unlz4_vectors(name):
     """test_run.sh analog through the in-process CLI: every vector's
     decode must equal its .bin (sha256-equivalent: full compare)."""
-    data = (V / f"{name}.lz4").read_bytes()
+    data = stand_in(name)[0]
     rc, out, _err = run_cli(["unlz4"], data)
     assert rc == 0
     assert out == _bin(name)
@@ -68,7 +67,7 @@ def test_unlz4_vectors(name):
 
 @pytest.mark.parametrize("name", ["t389", "z100legacy", "concat390"])
 def test_unlz4_simple_vectors(name):
-    rc, out, _err = run_cli(["unlz4-simple"], (V / f"{name}.lz4").read_bytes())
+    rc, out, _err = run_cli(["unlz4-simple"], stand_in(name)[0])
     assert rc == 0
     assert out == _bin(name)
 
@@ -76,14 +75,14 @@ def test_unlz4_simple_vectors(name):
 def test_unlz4_partial_frame():
     """<7 bytes left over: the reference consumer's 'Partial frame
     detected' diagnostic (unlz4ada.adb:73-77)."""
-    data = (V / "t2.lz4").read_bytes() + b"\x04\x22"
+    data = stand_in("t2")[0] + b"\x04\x22"
     rc, _out, err = run_cli(["unlz4"], data)
     assert rc == 1
     assert "Partial frame detected" in err
 
 
 def test_unlz4_simple_mid_frame():
-    data = (V / "t389.lz4").read_bytes()
+    data = stand_in("t389")[0]
     rc, _out, err = run_cli(["unlz4-simple"], data[:-5])
     assert rc == 1
     assert "mid-frame" in err
@@ -91,7 +90,7 @@ def test_unlz4_simple_mid_frame():
 
 def test_unlz4_error_parity_message():
     """Errors print the Ada exception image text (cli.main catch-all)."""
-    bad = bytearray((V / "t389.lz4").read_bytes())
+    bad = bytearray(stand_in("t389")[0])
     bad[-3] ^= 0x40    # content checksum byte
     rc, _out, err = run_cli(["unlz4"], bytes(bad))
     assert rc == 1
@@ -109,7 +108,7 @@ def test_xxhash32_of_stdin():
 
 
 def test_compress_round_trip_modern_and_legacy():
-    payload = (V / "t389.bin").read_bytes()
+    payload = stand_in("t389")[1]
     rc, frame, _ = run_cli(
         ["lz4-compress", "--content-size", "--block-checksum"], payload)
     assert rc == 0
@@ -122,7 +121,7 @@ def test_compress_round_trip_modern_and_legacy():
 
 def test_bench_host_backend(tmp_path):
     f = tmp_path / "t389.lz4"
-    f.write_bytes((V / "t389.lz4").read_bytes())
+    f.write_bytes(stand_in("t389")[0])
     rc, _out, err = run_cli(
         ["lz4-bench", str(f), "--backend", "host", "--reps", "1"])
     assert rc == 0
@@ -138,7 +137,7 @@ def test_bench_missing_file():
 
 def test_bench_encode_host(tmp_path):
     f = tmp_path / "payload.bin"
-    f.write_bytes((V / "t389.bin").read_bytes())
+    f.write_bytes(stand_in("t389")[1])
     rc, _out, err = run_cli(
         ["lz4-bench", str(f), "--encode", "--backend", "host",
          "--reps", "1"])
@@ -146,18 +145,9 @@ def test_bench_encode_host(tmp_path):
     assert "MB/s compressed" in err
 
 
-def test_bench_pipeline_backend(tmp_path):
-    f = tmp_path / "t389.lz4"
-    f.write_bytes((V / "t389.lz4").read_bytes())
-    rc, _out, err = run_cli(
-        ["lz4-bench", str(f), "--backend", "pipeline", "--reps", "1"])
-    assert rc == 0
-    assert "TOTAL" in err
-
-
 def test_bench_sharded_backend(tmp_path):
     f = tmp_path / "t100k.lz4"
-    f.write_bytes((V / "t100k.lz4").read_bytes())
+    f.write_bytes(stand_in("t100k")[0])
     rc, _out, err = run_cli(
         ["lz4-bench", str(f), "--backend", "sharded", "--reps", "1"])
     assert rc == 0
@@ -166,7 +156,7 @@ def test_bench_sharded_backend(tmp_path):
 
 def test_bench_stats_flag(tmp_path):
     f = tmp_path / "t389.lz4"
-    f.write_bytes((V / "t389.lz4").read_bytes())
+    f.write_bytes(stand_in("t389")[0])
     rc, _out, err = run_cli(
         ["lz4-bench", str(f), "--backend", "auto", "--reps", "1",
          "--stats"])
@@ -175,7 +165,7 @@ def test_bench_stats_flag(tmp_path):
 
 
 def test_compress_flag_combinations():
-    payload = (V / "t389.bin").read_bytes()
+    payload = stand_in("t389")[1]
     rc, frame, _err = run_cli(
         ["lz4-compress", "--content-size", "--block-checksum",
          "--block-independence", "--block-max-code", "4",
@@ -190,7 +180,7 @@ def test_compress_flag_combinations():
 def test_hdrinfo_in_process_matches_subprocess_layout():
     """The in-process hdrinfo output equals the golden layout asserted
     in test_parity_edges.py (shared reference: lz4hdrinfo.adb:90-145)."""
-    rc, out, _ = run_cli(["lz4hdrinfo"], (V / "t1111k.lz4").read_bytes())
+    rc, out, _ = run_cli(["lz4hdrinfo"], stand_in("t1111k")[0])
     assert rc == 0
     body = "\n".join(out.decode().splitlines()[2:])
     assert body.startswith("Declared Format        = 184d2204 (modern)")
@@ -204,10 +194,10 @@ def test_hdrinfo_in_process_matches_subprocess_layout():
 
 def test_hdrinfo_legacy_skippable_unsupported_and_short():
     rc, out, _ = run_cli(["lz4hdrinfo"],
-                         (V / "hellolegacy.lz4").read_bytes())
+                         stand_in("hellolegacy")[0])
     assert rc == 0 and b"(legacy)" in out
     rc, out, _ = run_cli(["lz4hdrinfo"],
-                         (V / "skippable.lz4").read_bytes())
+                         stand_in("skippable")[0])
     assert rc == 0 and b"(skippable)" in out and b"Content_Size" in out
     rc, out, _ = run_cli(["lz4hdrinfo"], b"\xde\xad\xbe\xef" + b"\0" * 8)
     assert rc == 0 and b"(UNSUPPORTED)" in out
@@ -253,7 +243,7 @@ def test_compress_content_size_one_shot():
 
 def test_bench_device_backend_and_profile(tmp_path):
     f = tmp_path / "x.lz4"
-    f.write_bytes((V / "t2.lz4").read_bytes())
+    f.write_bytes(stand_in("t2")[0])
     prof = tmp_path / "trace"
     rc, _out, err = run_cli(
         ["lz4-bench", str(f), "--backend", "device", "--reps", "1",
@@ -298,7 +288,7 @@ def test_tool_main_wrappers():
     from lz4tpu import cli
 
     old_in, old_out, old_err = sys.stdin, sys.stdout, sys.stderr
-    in_b = io.BytesIO((V / "t2.lz4").read_bytes())
+    in_b = io.BytesIO(stand_in("t2")[0])
     out_b = io.BytesIO()
     fake_in = io.TextIOWrapper(in_b, encoding="utf-8")
     fake_out = io.TextIOWrapper(out_b, encoding="utf-8",
@@ -311,7 +301,7 @@ def test_tool_main_wrappers():
         got = out_b.getvalue()
     finally:
         sys.stdin, sys.stdout, sys.stderr = old_in, old_out, old_err
-    assert rc == 0 and got == (V / "t2.bin").read_bytes()
+    assert rc == 0 and got == stand_in("t2")[1]
 
 
 def test_xxhash32_pure_python_fallback(monkeypatch):

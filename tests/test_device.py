@@ -52,55 +52,64 @@ def test_device_deep_chain():
     assert decompress_host(frame) == payload
 
 
-def test_sparse_fill_plan_selectivity():
-    """Block-fill plan only claims fill-dominated programs: tiny chains
-    with no fully-covered 512 KiB block stay on the concat path, and a
-    zeros-like program is claimed with no patches beyond boundaries."""
+def test_sparse_programs_share_compiles_across_offsets():
+    """A sparse program's compile key leaves out where its copies read
+    the compressed input: identical blocks at different stream offsets
+    (every 64 KiB block of a zeros frame) share one compiled program."""
     from lz4tpu.device import sparse_decode as sp
 
-    tiny = (sp.SparseOp("copy", 0, 4096, src=7),)
-    assert sp._plan_block_fill(tiny, 4096) is None
-    big = (
-        sp.SparseOp("fill", 0, 9_000_000, pattern=b"\x00"),
-        sp.SparseOp("copy", 9_000_000, 100, src=7),
-    )
-    plan = sp._plan_block_fill(big, 9_000_100)
-    assert plan is not None
-    vals, patches = plan
-    assert vals.shape[0] == -(-9_000_100 // sp._FILL_BLK)
-    # patches: the copy + the fill's partial tail block, both bounded
-    assert sum(n for *_x, n in patches) <= sp._FILL_BLK
+    a = (sp.SparseOp("copy", 0, 1, src=7),
+         sp.SparseOp("fill", 1, 65535, pattern=b"\x00"))
+    b = (sp.SparseOp("copy", 0, 1, src=9000),
+         sp.SparseOp("fill", 1, 65535, pattern=b"\x00"))
+    assert sp._program_key(a) == sp._program_key(b)
+    selfop = (sp.SparseOp("copy", 0, 300, src=0),
+              sp.SparseOp("self", 300, 300, src=0))
+    moved = (sp.SparseOp("copy", 0, 300, src=0),
+             sp.SparseOp("self", 300, 300, src=10))
+    assert sp._program_key(selfop) != sp._program_key(moved)
+
+    zeros = bytes(6 * 65536)
+    frame = compress(zeros, block_max_code=4, block_independence=True)
+    sp._compile_program.cache_clear()
+    assert decompress_device(frame) == zeros
+    info = sp._compile_program.cache_info()
+    assert info.misses == 1 and info.hits == 5
 
 
-def test_resolver_continue_doubling_deep_chain():
-    """A provenance chain deeper than 2**UNROLL_ITERS forces the
-    resolver's continue_doubling re-entry (the convergence net: the
-    flag is checked, not assumed)."""
+def test_resolver_deep_chain_round_bound():
+    """A provenance chain as deep as the sequence count (every sequence
+    copies the byte before it) resolves in doubling_rounds(S) rounds —
+    and one round fewer than ceil(log2(S)) leaves bytes unresolved, so
+    the bound is what makes the output right."""
     import jax.numpy as jnp
 
     from lz4tpu.device import decode as dr
 
-    S = 70_000                      # > 2**16 = one extra round needed
-    comp = jnp.asarray(np.frombuffer(b"Q\x00\x00\x00", np.uint8))
-    out_start = np.arange(S, dtype=np.int32)
-    lit_len = np.zeros(S, np.int32)
-    lit_len[0] = 1                  # byte 0 is the only literal
-    lit_src = np.zeros(S, np.int32)
-    match_off = np.ones(S, np.int32)
-    produces = np.ones(S, bool)
-    out = dr.resolve_sources(
-        comp, jnp.asarray(out_start), jnp.asarray(lit_len),
-        jnp.asarray(lit_src), jnp.asarray(match_off),
-        jnp.asarray(produces), S, S,
-    )
-    assert bytes(out) == b"Q" * S
+    S = 70_000
+    # unresolved pointers gather comp[0], which is not the literal
+    comp = jnp.asarray(np.frombuffer(b"\x00Q\x00\x00", np.uint8))
+    cols = np.zeros((5, S), np.int32)
+    cols[0] = np.arange(S)          # out_start
+    cols[1, 0] = 1                  # byte 0 is the only literal ...
+    cols[2, 0] = 1                  # ... read from comp[1]
+    cols[3] = 1                     # match_off
+    cols[4, 1:] = 1                 # match_len
+    n_out = dr.bucket(S)
+    rounds = dr.doubling_rounds(S)
+    assert rounds == 18
+    out = dr.resolve(comp, jnp.asarray(cols), np.int32(S), n_out=n_out,
+                     rounds=rounds)
+    assert bytes(np.asarray(out)[:S]) == b"Q" * S
+    short = dr.resolve(comp, jnp.asarray(cols), np.int32(S), n_out=n_out,
+                       rounds=rounds - 3)
+    assert bytes(np.asarray(short)[:S]) != b"Q" * S
 
 
-def test_sparse_block_fill_executes():
-    """The block-fill Pallas kernel + patch splice (z9m's production
-    path) execute end-to-end on the CPU mesh, not just at plan time:
-    a zeros-dominated frame runs `_block_fill`, and a two-byte-period
-    frame exercises the non-uniform pattern-tiling patch branch."""
+def test_sparse_uniform_fills_execute():
+    """Uniform fills (jnp.full inside the program) and pattern tiling
+    execute end-to-end: a zeros-dominated frame, a two-byte-period
+    frame, and two uniform fills back to back."""
     zeros = bytes(2_000_000) + b"tail!" * 10
     frame = compress(zeros, block_max_code=7)
     assert decompress_device(frame) == zeros
@@ -109,8 +118,6 @@ def test_sparse_block_fill_executes():
     frame2 = compress(ab, block_max_code=7)
     assert decompress_device(frame2) == ab
 
-    # two uniform fills sharing one 512 KiB block: the larger share
-    # owns the block's fill byte, the loser's fragment is patched
     two = bytes(600_000) + b"\xff" * 600_000 + b"END!"
     frame3 = compress(two, block_max_code=7)
     assert decompress_device(frame3) == two
@@ -127,47 +134,41 @@ def test_decompress_to_device(vectors_dir):
     for name in ("t100k", "skipz100", "z101legacyplus"):
         data = (vectors_dir / f"{name}.lz4").read_bytes()
         ref = (vectors_dir / f"{name}.bin").read_bytes()
-        out = lz4tpu.decompress_to_device(data, interpret=True)
+        out = lz4tpu.decompress_to_device(data)
         assert isinstance(out, jax.Array) and out.dtype == jnp.uint8
         assert bytes(jax.device_get(out).tobytes()) == ref
     # verify="host" catches a corrupted content checksum
     bad = bytearray((vectors_dir / "t100k.lz4").read_bytes())
     bad[-1] ^= 0xFF
     with pytest.raises(Lz4Error):
-        lz4tpu.decompress_to_device(bytes(bad), interpret=True)
+        lz4tpu.decompress_to_device(bytes(bad))
     # verify="none" skips checksum verification but still validates
     # the sequence grammar
-    out = lz4tpu.decompress_to_device(bytes(bad), interpret=True,
-                                      verify="none")
+    out = lz4tpu.decompress_to_device(bytes(bad), verify="none")
     assert out.shape[0] == 102400
 
 
-def test_xxh32_segment_chain(monkeypatch):
-    """The fixed-shape segment hasher must match the reference digest
-    across segment boundaries, partial final segments, and stripe
-    tails.  Shrink the segment/fetch thresholds so the chain runs in
-    interpret mode on small data."""
+def test_xxh32_ranges_of_device_array():
+    """Content-checksum hashing of a device-resident array matches the
+    reference digest for ranges at unaligned starts and ends, exact
+    stripes, sub-stripe and empty ranges — all in one launch."""
     import jax.numpy as jnp
 
-    from lz4tpu.device import xxh32_pallas as xp
+    from lz4tpu.device.xxh32 import xxh32_ranges
     from lz4tpu.xxh32 import xxh32
 
-    monkeypatch.setattr(xp, "_SEG_BYTES", 1 << 15)     # 32 KiB segments
-    monkeypatch.setattr(xp, "_SMALL_FETCH", 1 << 14)
     rng = np.random.default_rng(3)
     data = rng.integers(0, 256, 200_000, dtype=np.uint8)
-    arr = jnp.asarray(data)
-    for lo, hi in ((0, 200_000), (7, 199_003), (100, 100 + (1 << 15)),
-                   (5, 5 + (1 << 15) + 13), (0, 16), (3, 3)):
-        got = xp.xxh32_of_device_array(arr, lo, hi, interpret=True)
-        want = xxh32(data[lo:hi].tobytes())
-        assert got == want, (lo, hi)
+    ranges = ((0, 200_000), (7, 199_003), (100, 100 + (1 << 15)),
+              (5, 5 + (1 << 15) + 13), (0, 16), (3, 3))
+    got = xxh32_ranges(jnp.asarray(data), [lo for lo, _ in ranges],
+                       [hi - lo for lo, hi in ranges])
+    assert got == [xxh32(data[lo:hi].tobytes()) for lo, hi in ranges]
 
 
 def test_decompress_to_device_verify_device(vectors_dir):
-    """verify="device": content checksums computed by the Pallas xxh32
-    stripe kernel over the HBM-resident output; decoded bytes never
-    fetched.  Same acceptance and same reference-parity rejection as
+    """verify="device": content checksums computed by the xxh32 kernel
+    over the device-resident output; decoded bytes never fetched.  Same acceptance and same reference-parity rejection as
     the host verifier."""
     import jax
 
@@ -176,18 +177,15 @@ def test_decompress_to_device_verify_device(vectors_dir):
     for name in ("t100k", "concat390", "z2841", "z1", "emptycraft"):
         data = (vectors_dir / f"{name}.lz4").read_bytes()
         ref = (vectors_dir / f"{name}.bin").read_bytes()
-        out = lz4tpu.decompress_to_device(data, interpret=True,
-                                          verify="device")
+        out = lz4tpu.decompress_to_device(data, verify="device")
         assert bytes(jax.device_get(out).tobytes()) == ref
     # corrupted content checksum raises the same parity error
     bad = bytearray((vectors_dir / "t100k.lz4").read_bytes())
     bad[-1] ^= 0xFF
     with pytest.raises(Lz4Error) as ei_dev:
-        lz4tpu.decompress_to_device(bytes(bad), interpret=True,
-                                    verify="device")
+        lz4tpu.decompress_to_device(bytes(bad), verify="device")
     with pytest.raises(Lz4Error) as ei_host:
-        lz4tpu.decompress_to_device(bytes(bad), interpret=True,
-                                    verify="host")
+        lz4tpu.decompress_to_device(bytes(bad), verify="host")
     assert ei_dev.value.ada_image() == ei_host.value.ada_image()
 
 
@@ -232,35 +230,47 @@ def test_sparse_classifier_rejections():
 
 
 def test_forced_resolver_engine(vectors_dir):
-    """engine="resolve" (byte-parallel XLA resolver) decodes bit-exact
-    — the correctness-engine contract the sharded fallback relies on."""
-    data = (vectors_dir / "t100k.lz4").read_bytes()
-    ref = (vectors_dir / "t100k.bin").read_bytes()
-    assert decompress_device(data, engine="resolve") == ref
+    """Every chain through the byte-parallel resolver (sparse chains
+    included) decodes bit-exact — the contract the sharded span
+    path relies on."""
+    from lz4tpu.constants import FOR_ALL
+    from lz4tpu.frame import parse_frames
+    from lz4tpu.pipeline import (
+        _chains_of, assemble_device_segments, build_seq_table,
+        resolve_chains, stage_comp,
+    )
+
+    for name in ("t100k", "z101legacyplus"):
+        data = (vectors_dir / f"{name}.lz4").read_bytes()
+        ref = (vectors_dir / f"{name}.bin").read_bytes()
+        buf = np.frombuffer(data, np.uint8)
+        table = build_seq_table(buf, parse_frames(buf, FOR_ALL), FOR_ALL,
+                                data)
+        chains = [c for c in _chains_of(table) if c.out_hi > c.out_lo]
+        segs = resolve_chains(table, chains, stage_comp(buf))
+        out = assemble_device_segments(segs, table.n_out)
+        assert np.asarray(out).tobytes() == ref
 
 
 def test_plan_overflow_isolation_multi_chain(vectors_dir):
-    """A fused-class chain concatenated with a budget-overflowing chain:
-    plan_decode must isolate the offender per chain (the good chain
-    keeps the fused engine, the offender falls to the host-pack dense
-    engine) and the public pipeline stays bit-exact."""
+    """Chains classify one by one: a text chain next to a zeros chain
+    goes to the resolver while the zeros chain runs as a sparse
+    program, and the public pipeline stays bit-exact."""
     from lz4tpu.constants import FOR_ALL
     from lz4tpu.frame import parse_frames
     from lz4tpu.pipeline import DecodeStats, build_seq_table, plan_decode
 
     good = (vectors_dir / "t100k.lz4").read_bytes()
-    # the offender needs > _SPARSE_MAX_SEQS sequences (text prefix) AND
-    # a guaranteed patch-budget overflow (the offset-2 run)
-    text = (vectors_dir / "t100k.bin").read_bytes()[:50_000]
-    bad_payload = text + b"ab" * 120_000
-    data = good + compress(bad_payload)
-    ref = (vectors_dir / "t100k.bin").read_bytes() + bad_payload
+    zeros = bytes(300_000)
+    data = good + compress(zeros)
+    ref = (vectors_dir / "t100k.bin").read_bytes() + zeros
 
     buf = np.frombuffer(data, np.uint8)
     parsed = parse_frames(buf, FOR_ALL)
     table = build_seq_table(buf, parsed, FOR_ALL, data)
     st = DecodeStats()
-    plan = plan_decode(buf, parsed, table, st)
-    assert len(plan.fused_chains) == 1
-    assert len(plan.dense_chains) == 1
-    assert decompress_device(data, interpret=True) == ref
+    plan = plan_decode(buf, table, st)
+    assert len(plan.dense) == 1 and len(plan.sparse) == 1
+    assert st.engine_bytes == {"resolve": len(ref) - len(zeros),
+                               "sparse": len(zeros)}
+    assert decompress_device(data) == ref

@@ -252,10 +252,11 @@ class TestDeviceEmission:
         """Quantized+combined+extended lengths stay within 5% of the
         search encoder on text and runs (measured 1.00-1.03x with the
         8-level scheme + bounded forward extension)."""
-        t300k = open(
-            "/root/reference/test_vectors_lz4/t300k.bin", "rb").read()
+        from lz4tpu import corpus
+
+        text = corpus.log_text(np.random.default_rng(300), 307_200)
         for payload in (b"lorem ipsum dolor sit amet " * 2000,
-                        bytes(50000) + b"tail " * 400, t300k):
+                        bytes(50000) + b"tail " * 400, text):
             emit = de.compress_block_device_emit(payload)
             search = de.compress_block_device(payload)
             assert len(emit) <= len(search) * 1.05
@@ -268,8 +269,9 @@ class TestDeviceEmission:
         import jax
         import jax.numpy as jnp
 
-        t100k = open(
-            "/root/reference/test_vectors_lz4/t100k.bin", "rb").read()
+        from lz4tpu import corpus
+
+        t100k = corpus.log_text(np.random.default_rng(100), 102_400)
         rng = np.random.default_rng(44)
         mixed = (b"the quick brown fox %d | " * 1 % 0) + b"".join(
             b"var%d = value_%d; " % (i % 97, i % 31)

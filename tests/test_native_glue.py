@@ -76,30 +76,6 @@ def test_decode_block_ring_error_statuses():
     assert st == native.E_BACKREF_RANGE and err < 0
 
 
-def test_pack_dense2_chain_out_buffer_contract():
-    buf = np.frombuffer(b"HELLO WORLD DATA", np.uint8)
-    ll = np.array([8], np.int32)
-    ls = np.array([0], np.int32)
-    ml = np.array([8], np.int32)
-    mo = np.array([4], np.int32)
-    out = np.zeros(16 + 16, np.int32)
-    code, n = native.pack_dense2_chain(buf, ll, ls, ml, mo, out=out)
-    assert n == 16 and code.base is out
-    with pytest.raises(ValueError, match="too small"):
-        native.pack_dense2_chain(buf, ll, ls, ml, mo,
-                                 out=np.zeros(4, np.int32))
-
-
-def test_pack_dense2_chain_backref_before_chain():
-    buf = np.frombuffer(b"ABCD", np.uint8)
-    ll = np.array([1], np.int32)
-    ls = np.array([0], np.int32)
-    ml = np.array([4], np.int32)
-    mo = np.array([9], np.int32)   # reaches before position 0
-    with pytest.raises(ValueError, match="status 2"):
-        native.pack_dense2_chain(buf, ll, ls, ml, mo)
-
-
 def test_compress_block_paths():
     assert native.compress_block(b"") == b""
     payload = b"history path payload " * 30
@@ -149,36 +125,15 @@ def test_available_caches_load_error(monkeypatch):
         native._get()
 
 
-def test_resolve_window_hop_budget():
-    data = open(
-        "/root/reference/test_vectors_lz4/t1111k.lz4", "rb").read()
-    import lz4tpu
-    from lz4tpu.frame import parse_frames
-    from lz4tpu.pipeline import build_seq_table
-    from lz4tpu.constants import FOR_ALL
-
-    buf = np.frombuffer(data, np.uint8)
-    parsed = parse_frames(buf, FOR_ALL)
-    t = build_seq_table(buf, parsed, FOR_ALL, data)
-    starts = np.zeros(t.lit_len.size + 1, np.int64)
-    np.cumsum(t.lit_len.astype(np.int64) + t.match_len, out=starts[1:])
-    with pytest.raises(ValueError, match="status"):
-        native.resolve_window(
-            t.lit_len, t.match_len, t.match_off, t.lit_src, buf,
-            np.ascontiguousarray(starts, np.int32),
-            512 * 1024, 65536, hop_budget=10,
-        )
-    del lz4tpu
-
-
 def test_get_stale_so_build_failure_is_cached(monkeypatch, tmp_path):
     """A missing/stale .so triggers a rebuild; a rebuild failure is
     cached as the load error (no retry storm on every call)."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_load_error", None)
-    monkeypatch.setattr(native, "_SO", str(tmp_path / "absent.so"))
+    monkeypatch.setattr(native, "_so_path",
+                        lambda: str(tmp_path / "absent.so"))
 
-    def boom():
+    def boom(so):
         raise RuntimeError("simulated compiler failure")
 
     monkeypatch.setattr(native, "_build", boom)
@@ -196,85 +151,21 @@ def test_build_compiles_and_binds(monkeypatch, tmp_path):
     import ctypes
 
     so = tmp_path / "fresh_lz4core.so"
-    monkeypatch.setattr(native, "_SO", str(so))
-    native._build()
+    native._build(str(so))
     assert so.exists() and so.stat().st_size > 0
     lib = native._bind(ctypes.CDLL(str(so)))
     assert lib.lz4tpu_xxh32_state_size() > 0
 
 
-def test_resolve_window_caller_buffer():
-    """A caller-provided ``out`` array is filled in place and returned
-    (no allocation), identical to the allocating call."""
-    from lz4tpu import FOR_ALL, decompress_host
-    from lz4tpu.frame import parse_frames
-    from lz4tpu.pipeline import build_seq_table
-
-    data = open(
-        "/root/reference/test_vectors_lz4/t100k.lz4", "rb").read()
-    buf = np.frombuffer(data, np.uint8)
-    parsed = parse_frames(buf, FOR_ALL)
-    t = build_seq_table(buf, parsed, FOR_ALL, data)
-    ll = np.ascontiguousarray(t.lit_len, np.int32)
-    ml = np.ascontiguousarray(t.match_len, np.int32)
-    mo = np.ascontiguousarray(t.match_off, np.int32)
-    ls = np.ascontiguousarray(t.lit_src, np.int32)
-    sizes = ll.astype(np.int64) + ml
-    starts = np.zeros(ll.size + 1, np.int64)
-    np.cumsum(sizes, out=starts[1:])
-    st32 = np.ascontiguousarray(starts, np.int32)
-    B = 65536
-    alloc = native.resolve_window(ll, ml, mo, ls, buf, st32, B, 4096)
-    mine = np.zeros(4096, np.uint8)
-    got = native.resolve_window(ll, ml, mo, ls, buf, st32, B, 4096,
-                                out=mine)
-    assert got is mine
-    assert (mine == alloc).all()
-    ref = decompress_host(data)
-    assert mine.tobytes() == ref[B - 4096:B]
-
-
-def test_prep_chain_pre_without_highwater():
-    """hw=None (caller-owned, non-pooled buffers) and an explicit
-    n_threads: the prep must produce the same counts as the pooled
-    default call."""
-    from lz4tpu import FOR_ALL
-    from lz4tpu.device import fused
-    from lz4tpu.frame import parse_frames
-    from lz4tpu.pipeline import build_seq_table
-
-    data = open(
-        "/root/reference/test_vectors_lz4/t100k.lz4", "rb").read()
-    buf = np.frombuffer(data, np.uint8)
-    parsed = parse_frames(buf, FOR_ALL)
-    t = build_seq_table(buf, parsed, FOR_ALL, data, pooled_cols=True)
-    assert t.pre is not None
-    starts_ext, litpos_ext, lits_flat, _max_off = t.pre
-    S = t.lit_len.size
-    n_out = int(starts_ext[S])
-    n_lit = int(litpos_ext[S])
-    n_sub = -(-n_out // fused.SUB)
-    n_win = max(1, -(-max(1, n_lit) // fused.LITWIN_Q))
-    winq = np.zeros(n_sub, np.int32)
-    scal = np.zeros((n_sub, 8), np.int32)
-    seqrec = np.zeros((n_sub, 2, 8, fused.SEQ_MAX // 8), np.int32)
-    patch = np.zeros((n_sub, 8, fused.PATCH_MAX // 8), np.int32)
-    n_recs, n_patches, max_recs, max_patches = \
-        native.prep_fused_chain_pre(
-            np.ascontiguousarray(t.lit_len, np.int32),
-            np.ascontiguousarray(t.match_len, np.int32),
-            np.ascontiguousarray(t.match_off, np.int32),
-            np.ascontiguousarray(t.lit_src, np.int32),
-            buf, n_win, starts_ext, litpos_ext, lits_flat, n_out,
-            winq, scal, seqrec, patch, hw=None, n_threads=1,
-        )
-    ref_prep = fused.prep_fused(
-        t.lit_len, t.match_len, t.match_off, t.lit_src, buf,
-        pre=t.pre, pooled=False,
-    )
-    assert (n_recs, n_patches) == (ref_prep.n_seq_recs,
-                                   ref_prep.n_patches)
-    assert (max_recs, max_patches) == (ref_prep.max_recs,
-                                       ref_prep.max_patches)
-    assert (seqrec == ref_prep.seqrec).all()
-    assert (scal == ref_prep.scal).all()
+def test_library_name_keys_on_source_flags_and_host(monkeypatch):
+    """The cached library is named by a hash of the source, the flags
+    and the host CPU: the same inputs find the same file, and a copy of
+    the checkout on another host (or with other flags) builds anew."""
+    path = native._so_path()
+    assert path == native._so_path()
+    assert path.endswith(".so") and "_lz4core." in path
+    monkeypatch.setattr(native, "_host_cpu", lambda: "another cpu")
+    other_host = native._so_path()
+    assert other_host != path
+    monkeypatch.setattr(native, "_FLAGS", native._FLAGS + ["-g"])
+    assert native._so_path() not in (path, other_host)

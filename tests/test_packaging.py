@@ -48,17 +48,16 @@ def test_wheel_contains_native_source_and_entry_points(wheel):
 
 
 def test_wheel_tree_decodes_vector(wheel, tmp_path):
-    """Unpack the wheel and decode t100k using ONLY the unpacked tree
-    (fresh interpreter, repo not on sys.path): the engine self-compiles
-    inside the installed layout."""
+    """Unpack the wheel and decode a corpus frame using ONLY the
+    unpacked tree (fresh interpreter, repo not on sys.path): the engine
+    self-compiles inside the installed layout."""
     site = tmp_path / "site"
     with zipfile.ZipFile(wheel) as z:
         z.extractall(site)
     code = (
-        "import lz4tpu, pathlib;"
-        "v = pathlib.Path('/root/reference/test_vectors_lz4');"
-        "data = (v / 't100k.lz4').read_bytes();"
-        "ref = (v / 't100k.bin').read_bytes();"
+        "import lz4tpu, numpy as np;"
+        "from lz4tpu import corpus;"
+        "data, ref = corpus.cases()['text_linked_64k_blockcsum'];"
         "assert lz4tpu.decompress(data, backend='host') == ref;"
         "assert lz4tpu.decompress(lz4tpu.compress(ref)) == ref;"
         "import lz4tpu.native as n; assert n.available();"

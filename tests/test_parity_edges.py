@@ -10,7 +10,6 @@
   raises (the reference's single byte loop fixes the order).
 """
 
-import pathlib
 import struct
 import subprocess
 import sys
@@ -22,7 +21,7 @@ import lz4tpu
 from lz4tpu.constants import EndOfFrame, Reservation
 from lz4tpu.errors import Lz4Error, TooLittleMemory
 
-V = pathlib.Path("/root/reference/test_vectors_lz4")
+from conftest import stand_in  # noqa: E402
 
 
 def _hdrinfo(data: bytes) -> tuple[int, str]:
@@ -46,7 +45,7 @@ def test_hdrinfo_subprocess_entry():
     env = dict(os.environ, PYTHONPATH="/root/repo", JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "lz4tpu.cli", "lz4hdrinfo"],
-        input=(V / "z100legacy.lz4").read_bytes(),
+        input=stand_in("z100legacy")[0],
         capture_output=True, env=env,
     )
     assert r.returncode == 0
@@ -56,7 +55,7 @@ def test_hdrinfo_subprocess_entry():
 
 
 def test_hdrinfo_modern_golden():
-    rc, out = _hdrinfo((V / "t1111k.lz4").read_bytes())
+    rc, out = _hdrinfo(stand_in("t1111k")[0])
     assert rc == 0
     assert out == (
         "Declared Format        = 184d2204 (modern)\n"
@@ -84,13 +83,13 @@ def test_hdrinfo_modern_content_size_golden():
 
 
 def test_hdrinfo_legacy_golden():
-    rc, out = _hdrinfo((V / "z100legacy.lz4").read_bytes())
+    rc, out = _hdrinfo(stand_in("z100legacy")[0])
     assert rc == 0
     assert out == "Declared Format        = 184c2102 (legacy)"
 
 
 def test_hdrinfo_skippable_golden():
-    rc, out = _hdrinfo((V / "skippable.lz4").read_bytes())
+    rc, out = _hdrinfo(stand_in("skippable")[0])
     assert rc == 0
     assert out == (
         "Declared Format        = 184d2a59 (skippable)\n"
@@ -118,16 +117,16 @@ def test_skippable_does_not_downgrade_sticky_reservation():
     keeps the caller's reservation for later frames.  The reference
     (lz4ada.adb:177 + adb:241-260) downgrades to 64 KiB and would then
     refuse t1111k's 4 MiB blocks; we keep the user's policy sticky."""
-    data = (V / "skippable.lz4").read_bytes() + (V / "t1111k.lz4").read_bytes()
+    data = stand_in("skippable")[0] + stand_in("t1111k")[0]
     out = lz4tpu.decompress_host(data, lz4tpu.FOR_ALL)
-    assert out == (V / "t1111k.bin").read_bytes()
+    assert out == stand_in("t1111k")[1]
 
 
 def test_skippable_use_first_sizes_like_reference():
     """Divergence 1, reference-matching half: with USE_FIRST a leading
     skippable frame sizes buffers at 64 KiB exactly like the reference,
     so a following 4 MiB-block frame must raise Too_Little_Memory."""
-    data = (V / "skippable.lz4").read_bytes() + (V / "t1111k.lz4").read_bytes()
+    data = stand_in("skippable")[0] + stand_in("t1111k")[0]
     with pytest.raises(TooLittleMemory):
         lz4tpu.decompress_host(data, Reservation.USE_FIRST)
 
@@ -172,7 +171,7 @@ def _pipeline_error(data: bytes):
     from lz4tpu.pipeline import decompress_device
 
     try:
-        decompress_device(data, interpret=True)
+        decompress_device(data)
         return None
     except Lz4Error as exc:
         return type(exc), str(exc)

@@ -168,22 +168,34 @@ def _dense_chain_table():
     return buf, parsed, table
 
 
-def test_plan_decode_resolver_fallback_on_dense_cap(monkeypatch):
+def test_plan_decode_dense_chain_to_resolver():
     buf, parsed, table = _dense_chain_table()
-    monkeypatch.setattr(pipeline, "_DENSE_MAX_CHAIN_OUT", 16)
-    plan = pipeline.plan_decode(buf, parsed, table)
-    assert len(plan.other) == 1  # classified to the resolver engine
-    assert not plan.dense_chains and plan.dense_pack is None
+    plan = pipeline.plan_decode(buf, table)
+    assert len(plan.dense) == 1 and not plan.sparse
 
 
-def test_plan_decode_numpy_cap_without_native(monkeypatch):
-    from lz4tpu import native
-
-    buf, parsed, table = _dense_chain_table()
-    monkeypatch.setattr(native, "available", lambda: False)
-    monkeypatch.setattr(pipeline, "_DENSE_MAX_CHAIN_OUT_NUMPY", 16)
-    plan = pipeline.plan_decode(buf, parsed, table)
-    assert len(plan.other) == 1
+@pytest.mark.parametrize("n_seqs,seq_bytes,sparse", [
+    (3, 200_000, True),       # a zeros run: few giant segments
+    (40, 4096, True),         # exactly the per-sequence byte floor
+    (40, 4095, False),        # below it: the resolver takes the chain
+    (600, 1 << 20, False),    # too many sequences for a sparse program
+])
+def test_plan_decode_sparse_shape_rule(n_seqs, seq_bytes, sparse):
+    """A chain is sparse when it has at most _SPARSE_MAX_SEQS sequences
+    producing at least _SPARSE_MIN_SEQ_BYTES each on average."""
+    ll = np.full(n_seqs, 1, np.int32)
+    ml = np.full(n_seqs, seq_bytes - 1, np.int32)
+    mo = np.ones(n_seqs, np.int32)
+    ls = np.zeros(n_seqs, np.int32)
+    n_out = n_seqs * seq_bytes
+    table = pipeline.SeqTable(
+        out_start=(np.arange(n_seqs) * seq_bytes).astype(np.int32),
+        lit_len=ll, lit_src=ls, match_len=ml, match_off=mo, n_out=n_out,
+        frame_out_start=np.array([0, n_out], np.int64),
+        spans=[pipeline.BlockSpan(0, 0, n_seqs, 0, n_out, True)])
+    plan = pipeline.plan_decode(np.zeros(16, np.uint8), table)
+    assert (len(plan.sparse), len(plan.dense)) == ((1, 0) if sparse
+                                                   else (0, 1))
 
 
 def test_lazy_decode_session_reexport_and_bad_attr():

@@ -1,26 +1,21 @@
-"""Single-block fast-path (scan_block_full + prep_fused_pre) parity.
+"""Single-block fast-path (scan_block_full) parity.
 
 The pooled_cols=True fast path (pipeline._build_seq_table_single) must
-be byte-identical to the generic scan+concat path in every observable:
-table columns, sentinels, literal stream, fused-prep outputs, and —
-for malformed inputs — the raised exception (message included).
-Reference semantics under test: the block token grammar of
+be identical to the generic scan+concat path in every observable: table
+columns, output size, frame bounds and — for malformed inputs — the
+raised exception (message included).  Inputs come from the seeded
+corpus.  Reference semantics under test: the block token grammar of
 lib/lz4ada.adb:724-804 and the back-reference range check of
 lz4ada.adb:867-874.
 """
 
-import glob
-import os
-
 import numpy as np
 import pytest
 
-from lz4tpu import native
+from lz4tpu import compress, corpus, native
 from lz4tpu import pipeline as P
-from lz4tpu.constants import Reservation
-from lz4tpu.device import fused
+from lz4tpu.constants import FOR_ALL, Reservation
 
-VEC = "/root/reference/test_vectors_lz4"
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native engine unavailable"
 )
@@ -28,109 +23,79 @@ pytestmark = pytest.mark.skipif(
 
 def _tables(data):
     buf = np.frombuffer(data, np.uint8)
-    parsed = P.parse_frames(buf, Reservation.USE_FIRST)
-    t_old = P.build_seq_table(buf, parsed, Reservation.USE_FIRST, data)
+    parsed = P.parse_frames(buf, FOR_ALL)
+    t_old = P.build_seq_table(buf, parsed, FOR_ALL, data)
     t_new = P.build_seq_table(
-        buf, parsed, Reservation.USE_FIRST, data, pooled_cols=True
+        buf, parsed, FOR_ALL, data, pooled_cols=True
     )
     return buf, t_old, t_new
 
 
-@pytest.mark.parametrize(
-    "vec", sorted(os.path.basename(v)
-                  for v in glob.glob(f"{VEC}/*.lz4")))
-def test_fast_path_table_and_prep_parity(vec):
-    data = open(f"{VEC}/{vec}", "rb").read()
-    try:
-        buf, t_old, t_new = _tables(data)
-    except Exception as e_old:          # noqa: BLE001 — parity check
-        buf = np.frombuffer(data, np.uint8)
-        with pytest.raises(type(e_old)) as ei:
-            parsed = P.parse_frames(buf, Reservation.USE_FIRST)
-            P.build_seq_table(
-                buf, parsed, Reservation.USE_FIRST, data, pooled_cols=True
-            )
-        assert str(ei.value) == str(e_old)
-        return
+@pytest.mark.parametrize("case", corpus.case_names())
+def test_fast_path_table_and_prep_parity(case):
+    data = corpus.cases()[case][0]
+    if not data:
+        pytest.skip("empty input has no table")
+    _buf, t_old, t_new = _tables(data)
     for f in ("out_start", "lit_len", "lit_src", "match_len", "match_off"):
         assert np.array_equal(getattr(t_old, f), getattr(t_new, f)), f
     assert t_old.n_out == t_new.n_out
     assert np.array_equal(t_old.frame_out_start, t_new.frame_out_start)
-    if t_new.pre is None:
-        return
-    S = t_new.lit_len.size
-    starts_ext, litpos_ext, lits, max_off = t_new.pre
-    assert starts_ext[S] == t_new.n_out
-    assert starts_ext[S + 1] == (1 << 31) - 1
-    lp = np.zeros(S + 1, np.int64)
-    np.cumsum(t_new.lit_len, out=lp[1:])
-    assert np.array_equal(litpos_ext[:S + 1].astype(np.int64), lp)
-    n_lit = int(lp[S])
-    if n_lit:
-        ref_lits = np.concatenate(
-            [buf[t_new.lit_src[i]:t_new.lit_src[i] + t_new.lit_len[i]]
-             for i in range(S)]
-        )
-        assert np.array_equal(lits[:n_lit], ref_lits)
-
-    def _prep(t, pre):
-        try:
-            return fused.prep_fused(
-                t.lit_len, t.match_len, t.match_off, t.lit_src, buf,
-                pre=pre,
-            )
-        except fused.FusedOverflow as e:
-            return str(e)
-
-    p_old = _prep(t_old, None)
-    p_new = _prep(t_new, t_new.pre)
-    if isinstance(p_old, str) or isinstance(p_new, str):
-        assert p_old == p_new          # same overflow reason
-        return
-    assert (p_old.n_sub, p_old.n_seq_recs, p_old.n_patches) == (
-        p_new.n_sub, p_new.n_seq_recs, p_new.n_patches)
-    ns = p_old.n_sub
-    assert np.array_equal(p_old.seqrec[:ns], p_new.seqrec[:ns])
-    assert np.array_equal(p_old.scal[:ns], p_new.scal[:ns])
-    assert np.array_equal(p_old.winq[:ns], p_new.winq[:ns])
-    # patch slot order within a substep is unspecified (kernel scatter
-    # is order-independent) — compare as multisets per substep
-    assert np.array_equal(np.sort(p_old.patch[:ns], axis=None),
-                          np.sort(p_new.patch[:ns], axis=None))
-    assert np.array_equal(p_old.lits, p_new.lits)
-    assert p_old.max_off == p_new.max_off
+    assert [vars(s) for s in t_old.spans] == [vars(s) for s in t_new.spans]
 
 
-@pytest.mark.parametrize(
-    "vec", sorted(os.path.basename(v)
-                  for v in glob.glob(f"{VEC}/*.err")))
-def test_fast_path_error_parity(vec):
-    """Malformed vectors must raise the same error (message included)
-    through the pooled fast path as through the generic path."""
-    data = open(f"{VEC}/{vec}", "rb").read()
+def _single_block(payload=b"fast path payload, fast path payload " * 40):
+    return bytearray(compress(payload, content_checksum=False))
+
+
+def _corrupt_offset_zero(f):
+    # first sequence: token at byte 11; make its match offset zero
+    blk = _single_block(b"abcdefgh" * 64)
+    tok = blk[11]
+    lit = tok >> 4
+    blk[12 + lit:14 + lit] = b"\x00\x00"
+    return blk
+
+
+def _corrupt_truncated(f):
+    blk = _single_block()
+    size = int.from_bytes(blk[7:11], "little")
+    blk[7:11] = (size - 5).to_bytes(4, "little")
+    del blk[11 + size - 5:11 + size]
+    return blk
+
+
+def _corrupt_backref(f):
+    blk = _single_block(b"abcdefgh" * 64)
+    tok = blk[11]
+    lit = tok >> 4
+    blk[12 + lit:14 + lit] = (60000).to_bytes(2, "little")
+    return blk
+
+
+@pytest.mark.parametrize("corrupt", [_corrupt_offset_zero,
+                                     _corrupt_truncated, _corrupt_backref])
+def test_fast_path_error_parity(corrupt):
+    """Malformed single-block frames must raise the same error (message
+    included) through the pooled fast path as through the generic
+    path."""
+    data = bytes(corrupt(None))
     buf = np.frombuffer(data, np.uint8)
-    try:
-        parsed = P.parse_frames(buf, Reservation.USE_FIRST)
-    except Exception:
-        return  # fails before the scan; fast path can't diverge
-    old_exc = new_exc = None
-    try:
-        P.build_seq_table(buf, parsed, Reservation.USE_FIRST, data)
-    except Exception as e:             # noqa: BLE001 — parity check
-        old_exc = e
-    try:
-        P.build_seq_table(
-            buf, parsed, Reservation.USE_FIRST, data, pooled_cols=True
-        )
-    except Exception as e:             # noqa: BLE001 — parity check
-        new_exc = e
-    assert (type(old_exc), str(old_exc)) == (type(new_exc), str(new_exc))
+    parsed = P.parse_frames(buf, Reservation.USE_FIRST)
+    errors = []
+    for pooled in (False, True):
+        with pytest.raises(Exception) as ei:
+            P.build_seq_table(buf, parsed, Reservation.USE_FIRST, data,
+                              pooled_cols=pooled)
+        errors.append((type(ei.value), str(ei.value)))
+    assert errors[0] == errors[1]
 
 
 def test_fast_path_decode_bit_exact():
-    """End-to-end device decode through the fast path (t1111k)."""
-    data = open(f"{VEC}/t1111k.lz4", "rb").read()
-    ref = open(f"{VEC}/t1111k.bin", "rb").read()
-    from lz4tpu.pipeline import decompress_device
-
-    assert bytes(decompress_device(data)) == ref
+    """End-to-end device decode through the fast path: one 1.1 MB text
+    block (the shape of the lz4 CLI's single-block frames)."""
+    payload = corpus.log_text(np.random.default_rng(11), 1_137_664)
+    data = compress(payload, block_max_code=7)
+    buf = np.frombuffer(data, np.uint8)
+    assert len(P.parse_frames(buf, Reservation.USE_FIRST).frames[0].blocks) == 1
+    assert P.decompress_device(data) == payload

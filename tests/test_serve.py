@@ -66,7 +66,7 @@ class TestSessionRoundTrip:
         import jax
 
         d, r = _vec(vectors_dir, "t100k")
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(d)
             arr = t.result_on_device()
             assert arr.dtype.name == "uint8"
@@ -74,7 +74,7 @@ class TestSessionRoundTrip:
             # repeated + mixed collection stays consistent
             assert t.result_on_device() is arr
             assert t.result() == r
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(d)
             assert t.result() == r            # bytes first
             arr = t.result_on_device()        # then device
@@ -86,17 +86,17 @@ class TestSessionRoundTrip:
         # verify="none" defers, but a later result() still raises
         bad = bytearray((vectors_dir / "t100k.lz4").read_bytes())
         bad[-1] ^= 0xFF
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(bytes(bad))
             with pytest.raises(errors.Lz4Error):
                 t.result_on_device()
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(bytes(bad))
             arr = t.result_on_device(verify="none")
             assert arr.shape[0] == 102400     # bytes delivered unverified
             with pytest.raises(errors.Lz4Error):
                 t.result()
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(b"x")
             with pytest.raises(ValueError):
                 t.result_on_device(verify="host")
@@ -114,7 +114,7 @@ class TestSessionRoundTrip:
 
         monkeypatch.setattr(plmod, "build_seq_table", boom)
         import jax
-        with DecodeSession(interpret=True) as s:
+        with DecodeSession() as s:
             t = s.submit(d)
             arr = t.result_on_device()
             assert bytes(jax.device_get(arr).tobytes()) == r
